@@ -1,10 +1,10 @@
-"""eetq-tpu: TPU-native W8A16 weight-only quantized inference engine.
+"""eetq-tpu: W8A16 weight-only quantized inference engine for NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of NetEase-FuXi/EETQ
+A from-scratch JAX/XLA re-design of the capabilities of NetEase-FuXi/EETQ
 (reference: /root/reference). Per-channel symmetric INT8 weight-only PTQ, fused
-dequant+matmul Pallas kernels (tiled prefill GEMM + bandwidth-bound decode GEMV),
+dequant+matmul through XLA plus a weight-streaming decode GEMV kernel,
 fused flash-attention decoder layers, one-line quantize-and-swap, HF-format
-quantized checkpoints, and first-class tensor-parallel serving over TPU meshes.
+quantized checkpoints, and first-class tensor-parallel serving over GPU meshes.
 """
 
 __version__ = "0.1.0"

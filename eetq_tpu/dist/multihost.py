@@ -1,17 +1,19 @@
-"""Multi-host initialization and hybrid (ICI x DCN) mesh construction.
+"""Multi-host initialization and (dp, tp) mesh construction.
 
 The reference has no distributed layer at all (SURVEY.md §2.3: its only
-rank-awareness is a log filter). This module is the multi-host entry for
-the TPU build: initialize the JAX distributed runtime, then build a mesh
-whose tensor-parallel axis rides ICI within a slice and whose data-parallel
-axis spans slices over DCN — the layout BASELINE.md's scaling target
-(1 chip -> 1 host -> 2+ hosts at >= 85% efficiency) assumes.
+rank-awareness is a log filter). This module is the multi-host entry:
+initialize the JAX distributed runtime, then build a mesh whose
+tensor-parallel axis stays within one process (the cards of one host, all
+to all over NVLink) and whose data-parallel axis spans processes. Within a
+host every card reaches every other at the same rate, so the mesh follows
+the algorithm alone.
 
 Typical multi-host serving setup (same program on every host):
 
     from eetq_tpu.dist import multihost
-    multihost.initialize()                      # no-op on single host
-    mesh = multihost.make_hybrid_mesh(tp=8)     # tp over ICI, dp over DCN
+    multihost.initialize(coordinator_address="host0:1234",
+                         num_processes=2, process_id=rank)
+    mesh = multihost.make_hybrid_mesh(tp=4)     # tp within a host
     model = AutoEETQForCausalLM.from_quantized(path).shard(mesh=mesh)
 """
 
@@ -28,8 +30,9 @@ log = get_logger(__name__)
 
 
 def initialize(**kwargs) -> None:
-    """Initialize jax.distributed across hosts (coordinator discovery via
-    TPU metadata or the explicit kwargs jax.distributed.initialize takes).
+    """Initialize jax.distributed across hosts (the explicit kwargs
+    jax.distributed.initialize takes: coordinator_address, num_processes,
+    process_id).
     Safe no-op when already initialized or on a single process.
 
     Order matters: jax.distributed.initialize() must run BEFORE anything
@@ -59,13 +62,10 @@ def make_hybrid_mesh(
     dp: int | None = None,
     devices=None,
 ) -> Mesh:
-    """(dp, tp) mesh with tp mapped to ICI-contiguous devices.
+    """(dp, tp) mesh with the tp axis inside one process.
 
-    Defaults: tp = devices per process (one host's chips share ICI),
-    dp = process count. On a single host this degenerates to
-    dist.make_mesh. For multi-slice topologies, prefers
-    mesh_utils.create_hybrid_device_mesh so dp crosses DCN and tp stays
-    inside a slice.
+    Defaults: tp = devices per process (one host's cards), dp = process
+    count. On a single host this is dist.make_mesh.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
@@ -75,24 +75,7 @@ def make_hybrid_mesh(
         dp = n // tp
     if dp * tp != n:
         raise ValueError(f"dp*tp = {dp}*{tp} != device count {n}")
-
-    if jax.process_count() > 1:
-        try:
-            from jax.experimental import mesh_utils
-
-            arr = mesh_utils.create_hybrid_device_mesh(
-                mesh_shape=(1, tp),
-                dcn_mesh_shape=(dp, 1),
-                devices=devices,
-            )
-            return Mesh(arr.reshape(dp, tp), (DATA_AXIS, MODEL_AXIS))
-        except Exception as e:
-            # No slice metadata (CPU multi-process, single-slice TPU):
-            # group tp within a process so the model axis stays on
-            # intra-host links and dp crosses processes.
-            log.info("hybrid mesh unavailable (%s); process-grouped mesh", e)
-            ordered = sorted(devices, key=lambda d: (d.process_index, d.id))
-            return Mesh(
-                np.asarray(ordered).reshape(dp, tp), (DATA_AXIS, MODEL_AXIS)
-            )
-    return Mesh(np.asarray(devices).reshape(dp, tp), (DATA_AXIS, MODEL_AXIS))
+    # group each process's devices together so the model axis stays on
+    # intra-host links and dp crosses processes
+    ordered = sorted(devices, key=lambda d: (d.process_index, d.id))
+    return Mesh(np.asarray(ordered).reshape(dp, tp), (DATA_AXIS, MODEL_AXIS))

@@ -3,7 +3,7 @@
 The reference has NO pipeline parallelism (SURVEY.md §2.3: HF accelerate's
 `device_map` gives naive layer-split *placement* — one GPU computes while the
 others idle, `examples/models/llama_transformers_example.py:111-118`). This
-module is the TPU-native upgrade: true pipelined execution where all stages
+module is the upgrade: true pipelined execution where all stages
 compute concurrently on different microbatches, built on `shard_map` over a
 `pipe` mesh axis with `lax.ppermute` stage-to-stage transfers — the idiomatic
 XLA collective for neighbor exchange (rides ICI within a slice, DCN across

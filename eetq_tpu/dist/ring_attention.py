@@ -2,7 +2,7 @@
 
 The reference has no sequence scaling at all (SURVEY.md §5 long-context:
 max_position hardcoded 2048, flash-attn on one GPU). This module is the
-TPU-native long-context layer: Q, K, V are sharded along the SEQUENCE axis
+Long-context layer: Q, K, V are sharded along the SEQUENCE axis
 across a mesh axis; each device computes flash-style online-softmax partial
 attention against its resident KV chunk, then rotates the KV shard around
 the ring with `ppermute` (ICI neighbor exchange), merging the softmax

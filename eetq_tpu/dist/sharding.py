@@ -425,7 +425,6 @@ def make_spec_window_fn(model: ShardedModel, window: int, k: int,
 
 def make_forward_fn(
     model: ShardedModel,
-    use_flash: bool = True,
     per_row_offset: bool = False,
     last_pos: bool = False,
 ) -> Callable:
@@ -450,7 +449,7 @@ def make_forward_fn(
         local = _unstack_local(params, model.specs)
         return forward_inner(
             local, cfg, tokens, positions, caches, offset,
-            use_flash=use_flash, tp=tp, tp_axis=MODEL_AXIS,
+            tp=tp, tp_axis=MODEL_AXIS,
             last_pos=last_idx,
         )
 

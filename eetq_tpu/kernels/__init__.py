@@ -1,14 +1,2 @@
-from eetq_tpu.kernels.w8a16 import (
-    w8a16_matmul_kernel_call,
-    w8a16_matmul_ref,
-    Epilogue,
-)
-from eetq_tpu.kernels.autotune import MatmulConfig, choose_config
-
-__all__ = [
-    "w8a16_matmul_kernel_call",
-    "w8a16_matmul_ref",
-    "Epilogue",
-    "MatmulConfig",
-    "choose_config",
-]
+"""Hand-written GPU kernels. Each one stays only while it beats the plain
+XLA version end to end on the card (PERF.md, "Kernel decisions")."""

@@ -1,25 +1,22 @@
 """Packed-weight tile layout: defined ONCE, imported by both the offline
-repacker and the Pallas kernels.
+repacker and the matmul paths.
 
 This module plays the role of the reference's layout single-source-of-truth
 (`csrc/cutlass_extensions/gemm/kernel/mixed_gemm_B_layout.h:59-85`), which ties
 the CPU preprocessor (`cutlass_preprocessors.cc:497-534`) to the GEMM kernels.
-On GPU the packed layout is an arch-specific row-permute + transpose +
+The reference's packed layout is an arch-specific row-permute + transpose +
 column-interleave + sign-bias chain so that ldmatrix/HMMA register layouts line
-up. On TPU none of that register choreography exists: Mosaic tiles VMEM as
-(sublane, lane) = (32, 128) for int8, and the MXU consumes bf16 after an
-in-register convert. The TPU-native packed layout is therefore:
+up. Here XLA's dot and the decode GEMV kernel read plain row-major tiles and
+convert int8 to bf16 in registers, so the packed layout is:
 
   - logical weight [K, N] int8 (in-features x out-features, matching the
     reference's K x N storage, `modules/qlinear.py:34`),
-  - padded so K % k_tile == 0 and N % n_tile == 0 (Mosaic int8 min tile is
-    (32, 128); we pad to multiples so every kernel block is full),
-  - stored row-major [Kp, Np]; kernel BlockSpecs slice (bk, bn) windows whose
-    innermost-dim runs are >= n_tile bytes, which the DMA engines stream at
-    full HBM bandwidth.
+  - zero-padded so K % k_tile == 0 and N % n_tile == 0 (256: whole blocks
+    for the GEMV kernel; the padding is inert in XLA's dot),
+  - stored row-major [Kp, Np].
 
 Checkpoints store the UNPACKED [K, N] int8 + scales (portable across layout
-versions and TPU generations — deliberately unlike the reference, whose saved
+versions and devices — deliberately unlike the reference, whose saved
 qweight bakes in SM-specific permutes, see SURVEY.md §5 checkpoint notes);
 packing happens at load time and is a cheap jitted pad.
 """
@@ -53,12 +50,10 @@ def pad_axis_to(x: jax.Array, axis: int, multiple: int) -> jax.Array:
 class TileLayout:
     """The packed int8 weight layout contract between repacker and kernels.
 
-    k_tile/n_tile are the padding granules. The Mosaic int8 VMEM minimum tile
-    is (32, 128); we pad to 256 — a small superset — so that every kernel
-    block shape the autotuner enumerates (multiples of 256) exactly divides
-    the padded dims, keeping all Pallas blocks full (no partial-block
-    masking on the hot path). Padding waste is < 256/4096 ≈ 6% worst case on
-    real transformer dims, ~0% on the common ones (all multiples of 256).
+    k_tile/n_tile are the padding granules: 256, so every block of the
+    decode GEMV kernel is full (no partial-block masking on the hot path).
+    Padding waste is < 256/4096 ≈ 6% worst case on real transformer dims,
+    ~0% on the common ones (all multiples of 256).
     """
 
     k_tile: int = 256
@@ -107,14 +102,13 @@ def pack_weights(
     The analogue of the reference's `preprocess_weights`
     (`csrc/eetpy.cpp:11-13` → `cutlass_preprocessors.cc:497-534`): offline,
     one-time, before serving. Returns a PackedWeight consumed by
-    eetq_tpu.kernels.
+    eetq_tpu.ops.
 
     bits=8: zero-pad to (k_tile, n_tile) granules, stored row-major [Kp, Np].
     bits=4 (values in [-8, 7] held one-per-int8): split-half nibble packing
     [Kp/2, Np] — element (i, n) packs logical row i in the low nibble and
     row i + Kp/2 in the high nibble, so the kernel needs no in-register row
-    interleave (see eetq_tpu/kernels/w8a16.py). K is padded so each half is
-    a whole number of k_tiles.
+    interleave. K is padded so each half is a whole number of k_tiles.
     """
     if qweight.dtype != jnp.int8:
         raise TypeError(f"pack_weights expects int8, got {qweight.dtype}")

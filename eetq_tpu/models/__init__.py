@@ -5,7 +5,11 @@ from eetq_tpu.models.transformer import (
     forward,
     init_caches,
 )
-from eetq_tpu.models.init import random_dense_params, quantize_params
+from eetq_tpu.models.init import (
+    quantize_params,
+    random_dense_params,
+    random_quantized_params,
+)
 
 __all__ = [
     "ModelConfig",
@@ -15,5 +19,6 @@ __all__ = [
     "forward",
     "init_caches",
     "random_dense_params",
+    "random_quantized_params",
     "quantize_params",
 ]

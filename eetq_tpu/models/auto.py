@@ -31,7 +31,7 @@ log = get_logger(__name__)
 
 # model_type -> supported (the reference's EETQ_CAUSAL_LM_MODEL_MAP,
 # auto.py:6-10, plus mistral/chatglm — the reference's chatglm fuser is
-# WIP/unregistered; here the family is fully implemented, r3 — and
+# WIP/unregistered; here the family is fully implemented — and
 # mixtral, the routed-MoE runtime the reference's 3-D "num_experts"
 # quantization infrastructure never got (`fpA_intB_gemm_wrapper.cu:44-66`,
 # num_experts=1 hardcoded in the runner))
@@ -114,7 +114,7 @@ class EETQCausalLM:
         return init_caches(self.cfg, batch, max_len, dtype)
 
     def shard(self, mesh=None, tp: int | None = None, dp: int = 1):
-        """Shard over a TPU mesh for runtime tensor parallelism.
+        """Shard over a device mesh for runtime tensor parallelism.
 
         Dense params: split, quantize per shard, place (shard_model).
         Quantized params (e.g. loaded via from_quantized from a

@@ -138,7 +138,7 @@ class ModelConfig:
 # ---- presets (shapes from the public HF configs) ----
 
 # Tiny llama-shaped config for smoke-testing the bench/serving scripts on
-# CPU (interpret-mode Pallas) before spending real-TPU time on them.
+# CPU before spending chip time on them.
 TOY = ModelConfig(
     vocab_size=256, hidden_size=128, intermediate_size=256, num_layers=2,
     num_heads=4, num_kv_heads=2, head_dim=32, max_position=2048,

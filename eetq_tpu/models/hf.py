@@ -7,7 +7,7 @@ Capability parity with the reference's L4 (`models/base.py:108-256`,
 - the saved qweight is the UNPACKED [out, in] int8 + fp16 [out] scales per
   projection — exactly what `transformers` expects for
   `quantization_config={"quant_method": "eetq"}` — so checkpoints are
-  portable across TPU generations and kernel layout versions (the reference
+  portable across devices and kernel layout versions (the reference
   saves its SM-arch-specific interleaved buffer, coupling checkpoints to the
   GPU they were made on);
 - `from_quantized` is fully implemented (the reference left it a stub,
@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from eetq_tpu.models.config import ModelConfig
+from eetq_tpu.models.safetensors_np import safe_open, save_file
 from eetq_tpu.models.transformer import LayerParams, ModelParams
 from eetq_tpu.modules.linear import DenseLinear, QuantLinear, quantize_linear
 from eetq_tpu.layout import pack_weights, unpack_weights
@@ -105,8 +106,6 @@ class _TensorSource:
 
 
 def _source_from_dir(path: str) -> _TensorSource:
-    from safetensors import safe_open
-
     idx_file = os.path.join(path, "model.safetensors.index.json")
     if os.path.exists(idx_file):
         with open(idx_file) as f:
@@ -119,7 +118,7 @@ def _source_from_dir(path: str) -> _TensorSource:
         raise FileNotFoundError(f"no .safetensors files in {path}")
     names = {}
     for f in st_files:
-        with safe_open(os.path.join(path, f), framework="numpy") as h:
+        with safe_open(os.path.join(path, f)) as h:
             for n in h.keys():
                 names[n] = f
     return _TensorSource(_one_handle_getter(path, names), names.keys())
@@ -128,8 +127,6 @@ def _source_from_dir(path: str) -> _TensorSource:
 def _one_handle_getter(path: str, weight_map: dict):
     """name -> array getter keeping ONE shard handle open at a time (reads
     cluster per file; avoids an fd per shard for the loader's lifetime)."""
-    from safetensors import safe_open
-
     current: dict = {}
 
     def get(name):
@@ -138,7 +135,7 @@ def _one_handle_getter(path: str, weight_map: dict):
             if "h" in current:
                 current["h"].__exit__(None, None, None)
             current["fn"] = fn
-            current["h"] = safe_open(fn, framework="numpy")
+            current["h"] = safe_open(fn)
         return current["h"].get_tensor(name)
 
     return get
@@ -372,8 +369,6 @@ def save_quantized(
     `utils/base.py:237-250`) store the per-group rows CONCATENATED to
     [G*out] — the loader reconstructs G from the length. `tp` is recorded
     in quantization_config for provenance."""
-    from safetensors.numpy import save_file
-
     os.makedirs(save_dir, exist_ok=True)
     tensors: dict[str, np.ndarray] = {}
 

@@ -1,9 +1,9 @@
 """Random-weight model construction (fp16-equivalent bf16 "reference model")
 and its quantization to W8A16 params.
 
-Used by tests and benchmarks: the environment has no network access, so
-benchmark models are built from the real configs with random weights — the
-compute/bandwidth profile is identical to real checkpoints.
+Used by tests and benchmarks: weights come from a seed, so benchmark models
+are built from the real configs with random weights — the compute and
+bandwidth profile is identical to real checkpoints.
 """
 
 from __future__ import annotations
@@ -88,6 +88,56 @@ def random_dense_params(
         embed=embed.astype(dtype),
         layers=layers,
         final_norm=jnp.ones((h,), jnp.float32),
+        lm_head=lm_head,
+    )
+
+
+def random_quantized_params(
+    cfg: ModelConfig, seed: int, bits: int = 8,
+    quantize_lm_head: bool = False, group_size: int | None = None,
+) -> ModelParams:
+    """A quantized model at full size, made on the device one layer at a
+    time: each layer's bf16 weights (normal, scaled 1/sqrt(fan_in)) are
+    drawn and quantized at once, so only one layer's dense copy is ever
+    live. Dense MLPs only (no MoE)."""
+    if cfg.num_experts:
+        raise NotImplementedError("random_quantized_params: dense MLPs only")
+    h = cfg.hidden_size
+    keys = jax.random.split(jax.random.PRNGKey(seed), cfg.num_layers + 2)
+
+    def lin(key, k, n, with_bias=False):
+        w = jax.random.normal(key, (k, n), jnp.bfloat16) * (k**-0.5)
+        bias = None
+        if with_bias:
+            bias = (jax.random.normal(key, (n,), jnp.float32) * 0.02).astype(
+                jnp.bfloat16
+            )
+        return quantize_linear(w, bias=bias, bits=bits, group_size=group_size)
+
+    layers = []
+    for i in range(cfg.num_layers):
+        ks = jax.random.split(keys[i], 4)
+        layers.append(LayerParams(
+            input_norm=jnp.ones((h,), jnp.float32),
+            qkv=lin(ks[0], h, cfg.qkv_out, with_bias=cfg.qkv_bias),
+            o_proj=lin(ks[1], cfg.num_heads * cfg.head_dim, h),
+            post_norm=jnp.ones((h,), jnp.float32),
+            gateup=lin(ks[2], h, 2 * cfg.intermediate_size),
+            down=lin(ks[3], cfg.intermediate_size, h),
+        ))
+        jax.block_until_ready(jax.tree.leaves(layers[-1]))
+    embed = jax.random.normal(keys[-2], (cfg.vocab_size, h), jnp.bfloat16) * 0.02
+    lm_head = None
+    if not cfg.tie_word_embeddings:
+        w = jax.random.normal(keys[-1], (h, cfg.vocab_size), jnp.bfloat16) * (
+            h**-0.5
+        )
+        lm_head = (
+            quantize_linear(w, bits=8) if quantize_lm_head
+            else DenseLinear(weight=w)
+        )
+    return ModelParams(
+        embed=embed, layers=layers, final_norm=jnp.ones((h,), jnp.float32),
         lm_head=lm_head,
     )
 

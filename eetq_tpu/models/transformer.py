@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 from typing import Any
 
 import jax
@@ -65,12 +64,6 @@ def _maybe_psum(x, tp_axis):
     return jax.lax.psum(x, tp_axis) if tp_axis is not None else x
 
 
-def _fused_mlp_enabled() -> bool:
-    # read at TRACE time (jit caches the traced program; flip the env in a
-    # fresh process — how the bench A/B runs it)
-    return os.environ.get("EETQ_FUSED_MLP", "0") == "1"
-
-
 def decoder_layer(
     p: LayerParams,
     cfg: ModelConfig,
@@ -79,12 +72,9 @@ def decoder_layer(
     cos_sin: jax.Array,
     cache: KVCache | None,
     offset,
-    use_flash: bool = True,
     tp: int = 1,
     tp_axis: str | None = None,
     a8: bool = False,
-    decode_kernel: bool | None = None,
-    fused_mlp: bool | None = None,
     lora_idx: jax.Array | None = None,
     verify: bool = False,
 ) -> tuple[jax.Array, KVCache | None]:
@@ -96,9 +86,6 @@ def decoder_layer(
 
     lora_idx [B]: per-row adapter selection when the layer's adapters are
     BANKS (multi-adapter serving; see modules.linear.linear_apply).
-
-    fused_mlp: run the MLP block as ONE kernel dispatch in the decode
-    regime (ops/mlp.py) — None reads the EETQ_FUSED_MLP env default.
 
     a8 routes the (compute-bound) projections through the W8A8
     int8-activation path — enable for prefill only.
@@ -113,8 +100,8 @@ def decoder_layer(
 
     # --- attention block ---
     residual = x
-    # RMSNorm is handed to linear_apply as a prenorm: fused into the
-    # kernel prologue in the decode regime (whole-K blocks), jnp otherwise.
+    # RMSNorm is handed to linear_apply as a prenorm; XLA fuses it into the
+    # producer of the projection's input.
     gamma1 = p.input_norm + 1.0 if cfg.rmsnorm_unit_offset else p.input_norm
     if p.qkv_lora is None:
         qkv = linear_apply(
@@ -142,13 +129,9 @@ def decoder_layer(
         q = rope(q, positions, cos_sin, interleaved=cfg.rope_interleaved)
         k = rope(k, positions, cos_sin, interleaved=cfg.rope_interleaved)
     attn, cache = attention(
-        q, k, v, cache, offset, window=cfg.sliding_window, use_flash=use_flash,
-        decode_kernel=decode_kernel, slopes=slopes, verify=verify,
+        q, k, v, cache, offset, window=cfg.sliding_window, slopes=slopes,
+        verify=verify,
     )
-    # NOTE: the kernel supports a fused residual epilogue
-    # (gemm_bias_act_residual parity, fpA_intB_gemm_template.h:804), but on
-    # v5e the extra residual block stream measured ~0.3 ms/step SLOWER than
-    # XLA's standalone add at decode shapes — so the add stays outside.
     o = linear_apply(p.o_proj, attn.reshape(b, s, hq * d), lora=p.o_lora,
                      a8=a8, lora_idx=lora_idx)
     x = residual + _maybe_psum(o, tp_axis)
@@ -169,24 +152,6 @@ def decoder_layer(
         )
         return residual + _maybe_psum(out, tp_axis), cache
     gamma2 = p.post_norm + 1.0 if cfg.rmsnorm_unit_offset else p.post_norm
-    if fused_mlp is None:
-        fused_mlp = _fused_mlp_enabled()
-    if not a8 and fused_mlp:
-        from eetq_tpu.ops.mlp import can_fuse_mlp
-        from eetq_tpu.ops.mlp import fused_mlp as fused_mlp_op
-
-        if can_fuse_mlp(p.gateup, p.down, b * s):
-            # whole MLP block (norm + gate/up GEMV + swiglu + down GEMV
-            # [+ residual]) in ONE kernel dispatch — decode launch/glue
-            # saver; under TP the residual stays outside (psum first)
-            out = fused_mlp_op(
-                p.gateup, p.down, x, gamma2, cfg.rms_eps,
-                activation=cfg.activation,
-                residual=residual if tp_axis is None else None,
-            )
-            if tp_axis is None:
-                return out, cache
-            return residual + _maybe_psum(out, tp_axis), cache
     gateup = linear_apply(
         p.gateup, x, a8=a8, prenorm=(gamma2, cfg.rms_eps)
     )  # [b, s, 2*i_local]
@@ -207,12 +172,9 @@ def forward_inner(
     positions: jax.Array,  # [B, S] int32
     caches: list[KVCache] | None,
     offset,
-    use_flash: bool = True,
     tp: int = 1,
     tp_axis: str | None = None,
     a8: bool = False,
-    decode_kernel: bool | None = None,
-    fused_mlp: bool | None = None,
     lora_idx: jax.Array | None = None,
     verify: bool = False,
     last_only: bool = False,
@@ -236,9 +198,8 @@ def forward_inner(
     for i, layer in enumerate(params.layers):
         cache_i = caches[i] if caches is not None else None
         x, cache_i = decoder_layer(
-            layer, cfg, x, positions, cos_sin, cache_i, offset, use_flash,
-            tp=tp, tp_axis=tp_axis, a8=a8, decode_kernel=decode_kernel,
-            fused_mlp=fused_mlp, lora_idx=lora_idx, verify=verify,
+            layer, cfg, x, positions, cos_sin, cache_i, offset,
+            tp=tp, tp_axis=tp_axis, a8=a8, lora_idx=lora_idx, verify=verify,
         )
         if new_caches is not None:
             new_caches.append(cache_i)
@@ -262,10 +223,7 @@ def forward_inner(
     return logits.astype(jnp.float32), new_caches
 
 
-@functools.partial(
-    jax.jit, static_argnames=("cfg", "use_flash", "a8", "fused_mlp",
-                              "last_only")
-)
+@functools.partial(jax.jit, static_argnames=("cfg", "a8", "last_only"))
 def forward(
     params: ModelParams,
     cfg: ModelConfig,
@@ -273,17 +231,15 @@ def forward(
     positions: jax.Array,
     caches: list[KVCache] | None,
     offset,
-    use_flash: bool = True,
     a8: bool = False,
-    fused_mlp: bool | None = None,
     lora_idx: jax.Array | None = None,
     last_only: bool = False,
 ) -> tuple[jax.Array, list[KVCache] | None]:
     """Single-device forward. Returns (logits [B, S, V] f32, caches);
     last_only=True returns [B, 1, V] (see forward_inner)."""
     return forward_inner(
-        params, cfg, tokens, positions, caches, offset, use_flash=use_flash,
-        a8=a8, fused_mlp=fused_mlp, lora_idx=lora_idx, last_only=last_only,
+        params, cfg, tokens, positions, caches, offset, a8=a8,
+        lora_idx=lora_idx, last_only=last_only,
     )
 
 

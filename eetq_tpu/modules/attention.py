@@ -8,15 +8,17 @@ Here the cache is a preallocated static-shape buffer updated with
 `lax.dynamic_update_slice` — jit-stable shapes, no reallocation, shardable
 over the TP (heads) mesh axis.
 
-Cache layout is [batch, n_kv_heads, max_len, head_dim] — sequence in the
-sublane dimension, head_dim in lanes — so Pallas kernels can block the
-sequence axis directly (the decode flash kernel reads (bl, D) tiles without
-a transpose; kernels/flash_decode.py).
+Cache layout is [batch, n_kv_heads, max_len, head_dim]: one (head, row)
+holds a contiguous [max_len, head_dim] slab.
 
-The prefill path uses the Pallas flash-attention kernel
-(eetq_tpu.kernels.flash_attention); decode (S=1) uses the flash-decode
-kernel on TPU (skips cache blocks beyond the current length, dequantizes
-int8 KV in-register) with an XLA einsum fallback/oracle.
+Prefill runs `jax.nn.dot_product_attention` — cuDNN's fused flash attention
+on the GPU (the Hopper counterpart of the reference's FlashAttention-2),
+XLA's composition on the CPU (`eetq_tpu.backend.attention_implementation`).
+Decode (S=1) and speculative verify (S>1 at dynamic offsets) run the same
+XLA einsums below at different query counts. Verify rows agree with
+sequential decode steps to f32 rounding, bit for bit at the sizes
+tests/test_flash_decode.py checks on the CPU; serve.spec's greedy
+exactness rests on that agreement.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+from eetq_tpu import backend
 
 NEG_INF = float("-inf")
 
@@ -58,7 +62,7 @@ class KVCache:
 def init_kv_cache(
     batch: int, max_len: int, n_kv_heads: int, head_dim: int, dtype=jnp.bfloat16
 ) -> KVCache:
-    # round the sequence allocation to 128 so kernel blocks divide evenly
+    # round the sequence allocation to 128, the paged block granule
     # (unused tail rows are masked by `length` everywhere)
     max_len = -(-max_len // 128) * 128
     shape = (batch, n_kv_heads, max_len, head_dim)
@@ -200,41 +204,66 @@ def causal_mask(
     return m[None, None]
 
 
-@functools.partial(jax.jit, static_argnames=("window", "use_flash"))
+def alibi_bias(slopes: jax.Array, s: int, l: int) -> jax.Array:
+    """[1, Hq, s, l] ALiBi bias slope_h * (key_pos - query_pos), with the
+    LAST query aligned to the LAST key (query i at position i + l - s)."""
+    i = jax.lax.broadcasted_iota(jnp.int32, (s, l), 0)
+    j = jax.lax.broadcasted_iota(jnp.int32, (s, l), 1)
+    dist = (j - i - (l - s)).astype(jnp.float32)
+    return slopes.astype(jnp.float32)[None, :, None, None] * dist
+
+
+@functools.partial(jax.jit, static_argnames=("window",))
 def attention_prefill(
     q: jax.Array,
     k: jax.Array,
     v: jax.Array,
     window: int | None = None,
-    use_flash: bool = True,
     slopes: jax.Array | None = None,
 ) -> jax.Array:
-    """Causal self-attention among the current S tokens (cache_len == 0).
+    """Causal attention of S queries over L >= S keys, the last query
+    aligned to the last key. q [B, S, Hq, D], k/v [B, L, Hkv, D].
 
-    is_causal=True mirrors the reference's prefill branch
+    is_causal mirrors the reference's prefill branch
     (`llama_modules.py:109,132-141`). slopes [Hq] enables ALiBi
     (baichuan-13b; reference `models/baichuan.py` delegates this to HF).
+
+    S == L (whole-prompt prefill) takes `backend.attention_implementation()`
+    with its built-in causal mask and left window. S < L (a chunk of a
+    chunked prefill) always takes the XLA implementation with an explicit
+    mask: cuDNN's causal mask aligns the first query with the first key,
+    and these queries sit L - S positions later. The XLA implementation
+    runs in f32 (its own default rounds the probabilities to the input
+    dtype before the product with V).
     """
+    s, l = q.shape[1], k.shape[1]
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    if use_flash:
-        from eetq_tpu.kernels.flash_attention import flash_attention
-
-        return flash_attention(
-            q, k, v, causal=True, window=window, scale=scale, slopes=slopes
+    impl = backend.attention_implementation() if s == l else "xla"
+    if impl == "xla":
+        # f32 scores, probabilities and products, like the decode path
+        dtype = q.dtype
+        q, k, v = (t.astype(jnp.float32) for t in (q, k, v))
+    bias = None if slopes is None else alibi_bias(slopes, s, l).astype(q.dtype)
+    if s == l:
+        out = jax.nn.dot_product_attention(
+            q, k, v, bias=bias, scale=scale, is_causal=True,
+            local_window_size=None if window is None else (window - 1, 0),
+            implementation=impl,
         )
-    return attention_reference(
-        q, k, v, causal_mask(q.shape[1], window, kv_len=k.shape[1]), scale,
-        slopes=slopes,
-    )
+    else:
+        out = jax.nn.dot_product_attention(
+            q, k, v, bias=bias, mask=causal_mask(s, window, kv_len=l),
+            scale=scale, implementation=impl,
+        )
+    return out if impl == "cudnn" else out.astype(dtype)
 
 
-@functools.partial(jax.jit, static_argnames=("window", "use_kernel"))
+@functools.partial(jax.jit, static_argnames=("window",))
 def attention_decode(
     q: jax.Array,
     cache: KVCache,
     length,
     window: int | None = None,
-    use_kernel: bool | None = None,
     slopes: jax.Array | None = None,
 ) -> jax.Array:
     """Single-step decode: q [B, 1, Hq, D] attends over cache[:, :, :length].
@@ -244,21 +273,6 @@ def attention_decode(
     may be a scalar or a per-row [B] vector. slopes [Hq] enables ALiBi.
     """
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    if use_kernel is None:
-        # Default: the flash-decode kernel on TPU. Through r3 it merely
-        # tied XLA on tight caches (per-head loop of [G, bl] dots was
-        # latency-bound at MHA shapes); the r4 batched-score rewrite wins
-        # there too (llama2-7b b=1 S~1k: 9.90 vs 10.01 ms/step, and
-        # 9.64 with int8 KV), on top of the oversized-cache (engine) and
-        # in-register int8-dequant wins. CPU keeps the einsum oracle so
-        # interpret-mode outputs stay bit-identical to generate().
-        use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        from eetq_tpu.kernels.flash_decode import flash_decode
-
-        return flash_decode(
-            q, cache, length, window=window, scale=scale, slopes=slopes
-        )
     return attention_decode_ref(q, cache, length, window, scale, slopes=slopes)
 
 
@@ -295,8 +309,7 @@ def attention_decode_ref(q, cache: KVCache, length, window, scale,
 
 
 def attention_verify(q, cache: KVCache, length, window, scale,
-                     slopes: jax.Array | None = None,
-                     use_kernel: bool | None = None):
+                     slopes: jax.Array | None = None):
     """Multi-query decode ("verify") attention: q [B, S, Hq, D] with S > 1
     tokens at DYNAMIC positions, query row i sitting at absolute position
     length - S + i, attending causally over cache[:, :, :length].
@@ -307,27 +320,7 @@ def attention_verify(q, cache: KVCache, length, window, scale,
     drafts at or before its own position. `length` may be a scalar or a
     per-row [B] vector (continuous batching). Unlike chunked prefill
     (static offsets, one compile per chunk), positions here are traced —
-    one compile covers every loop iteration of a speculative decode.
-
-    Dispatch mirrors attention_decode: the flash-decode kernel (multi-query
-    mode) on TPU, the einsum oracle elsewhere — so per-row verify logits
-    are BITWISE equal to the sequential decode path's logits on both
-    backends (the greedy-exactness guarantee of serve.spec)."""
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        from eetq_tpu.kernels.flash_decode import flash_decode
-
-        return flash_decode(
-            q, cache, length, window=window, scale=scale, slopes=slopes
-        )
-    return attention_verify_ref(q, cache, length, window, scale,
-                                slopes=slopes)
-
-
-def attention_verify_ref(q, cache: KVCache, length, window, scale,
-                         slopes: jax.Array | None = None):
-    """XLA einsum oracle for multi-query verify attention."""
+    one compile covers every loop iteration of a speculative decode."""
     b, s, hq, d = q.shape
     hkv, l = cache.k.shape[1], cache.max_len
     group = hq // hkv
@@ -365,23 +358,19 @@ def attention(
     cache: KVCache | None,
     offset,
     window: int | None = None,
-    use_flash: bool = True,
-    decode_kernel: bool | None = None,
     slopes: jax.Array | None = None,
     verify: bool = False,
 ) -> tuple[jax.Array, KVCache | None]:
     """Unified entry: write K/V to cache at `offset`, attend appropriately.
 
     Prefill = S > 1 with offset 0; decode = S == 1 with offset = current
-    length. decode_kernel opts the decode step into the flash-decode
-    Pallas kernel (wins when max_len >> length — continuous batching).
-    slopes [Hq] enables ALiBi position bias (no RoPE applied by the caller).
+    length. slopes [Hq] enables ALiBi position bias (no RoPE applied by the caller).
     Returns (attn_out [B, S, Hq, D], updated cache).
     """
     s = q.shape[1]
     if cache is not None and type(cache).__name__ == "PagedKVCache":
         # paged decode (modules.paged): scatter-write through the block
-        # table, then the paged flash-decode kernel / gather oracle
+        # table, then attention over the gathered blocks
         from eetq_tpu.modules.paged import (
             paged_attention_decode,
             paged_attention_verify,
@@ -396,17 +385,16 @@ def attention(
             )
         if s != 1:
             # speculative-decode verify over the paged pool: S writes
-            # through the table, then the multi-query paged kernel
+            # through the table, then multi-query attention
             cache = paged_write_multi(cache, k_new, v_new, offset)
             out = paged_attention_verify(
                 q, cache, jnp.asarray(offset, jnp.int32) + s, window=window,
-                use_kernel=decode_kernel, slopes=slopes,
+                slopes=slopes,
             )
             return out, cache
         cache = paged_write(cache, k_new, v_new, offset)
         out = paged_attention_decode(
-            q, cache, jnp.asarray(offset) + 1, window=window,
-            use_kernel=decode_kernel, slopes=slopes,
+            q, cache, jnp.asarray(offset) + 1, window=window, slopes=slopes,
         )
         return out, cache
     if cache is not None:
@@ -418,14 +406,12 @@ def attention(
         out = attention_verify(
             q, cache, jnp.asarray(offset, jnp.int32) + s, window,
             1.0 / (q.shape[-1] ** 0.5), slopes=slopes,
-            use_kernel=decode_kernel,
         )
         return out, cache
     if s == 1:
         assert cache is not None, "decode requires a KV cache"
         out = attention_decode(
-            q, cache, offset + 1, window=window, use_kernel=decode_kernel,
-            slopes=slopes,
+            q, cache, offset + 1, window=window, slopes=slopes,
         )
     elif cache is not None and isinstance(offset, int) and offset > 0:
         # CHUNKED PREFILL: the S-token chunk (already written to the cache
@@ -443,11 +429,8 @@ def attention(
             k_ctx.transpose(0, 2, 1, 3),
             v_ctx.transpose(0, 2, 1, 3),
             window=window,
-            use_flash=use_flash,
             slopes=slopes,
         )
     else:
-        out = attention_prefill(
-            q, k_new, v_new, window=window, use_flash=use_flash, slopes=slopes
-        )
+        out = attention_prefill(q, k_new, v_new, window=window, slopes=slopes)
     return out, cache

@@ -1,6 +1,6 @@
 """Quantized linear layers as functional pytree modules.
 
-The TPU-native re-design of the reference's `W8A16Linear` / `EetqLinear` /
+The functional re-design of the reference's `W8A16Linear` / `EetqLinear` /
 `W8A16LoraLinear` (`python/eetq/modules/qlinear.py`). Instead of nn.Module
 buffers, each layer is a frozen dataclass pytree of arrays; `linear_apply`
 is the forward. This is what makes runtime tensor parallelism trivial: pjit
@@ -43,7 +43,7 @@ class QuantLinear:
 
     Mirrors the reference's buffer layout — qweight [in, out] int8 + fp
     weight_scales [out] (`modules/qlinear.py:27-41`) — with the packed tile
-    layout of eetq_tpu.layout instead of the CUDA interleave.
+    layout of eetq_tpu.layout instead of the reference's interleave.
     """
 
     qweight: PackedWeight
@@ -137,14 +137,13 @@ def linear_apply(
     per row), so mixed-adapter batches decode at full speed.
 
     a8=True uses the W8A8/W4A8 path (dynamic per-token int8 activations,
-    s8xs8 MXU at 2x bf16 throughput) when the layer is an int8 per-channel
+    int8 tensor cores at 2x the bf16 rate) when the layer is an int8 per-channel
     or int4 (per-channel or group-wise) QuantLinear — the compute-bound
     prefill accelerator; ignored otherwise.
 
-    prenorm=(gamma, eps) applies rmsnorm(x, gamma, eps) before the matmul —
-    FUSED into the kernel prologue when the decode regime allows (whole-K
-    int8 blocks), a jnp op otherwise. Differentiable (custom VJP through
-    the rmsnorm->matmul reference); not combinable with LoRA.
+    prenorm=(gamma, eps) applies rmsnorm(x, gamma, eps) before the matmul
+    (XLA fuses it into the producer of the dot's input); not combinable
+    with LoRA.
     """
     if lora is not None and residual is not None:
         raise ValueError("fused residual with LoRA is not supported")
@@ -182,7 +181,7 @@ def linear_apply(
             )
     else:
         x = _maybe_norm(x)
-        # bf16 output (MXU still accumulates in f32 internally); an f32
+        # bf16 output (the dot still accumulates in f32 internally); an f32
         # output dtype would double the HBM write traffic of large prefill
         # activations for no accuracy gain.
         out = jnp.dot(x, layer.weight.astype(x.dtype))

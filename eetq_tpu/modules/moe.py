@@ -4,22 +4,21 @@ The reference carries 3-D "num_experts" batched quantization end to end
 (`fpA_intB_gemm_wrapper.cu:44-66`, `cutlass_preprocessors.cc:594-614`,
 MoE-aware layout traits `mixed_gemm_B_layout.h:1-4`) but hardcodes
 num_experts=1 in its GEMM runner and ships no router — the infrastructure
-without the runtime. This module is the runtime, TPU-native:
+without the runtime. This module is the runtime:
 
 - experts live as ONE stacked [E, K, N] quantized bank (a 3-D PackedWeight —
   the layout the quantizer/native preprocessor already produce);
 - routing is a top-k softmax over a small bf16 router linear;
-- **decode** (few tokens) runs `ops.moe.w8a16_expert_matmul`: expert ids are
-  scalar-prefetched into the Pallas grid, so HBM streams exactly the
-  selected experts' tiles — top-2-of-8 decode moves 1/4 of the bank's
-  bytes, the bandwidth-optimal figure for routed decode;
-- **prefill** (many tokens) runs a `lax.scan` over experts: every expert's
-  tiles stream once while all tokens' partial outputs are masked by the
-  routing weights (dense-masked combine — exact, static shapes, MXU-shaped;
-  the E/k FLOP overhead is the classic static-shape MoE tradeoff and
-  prefill is MXU-rich);
+- **decode** (few selections) runs `ops.moe.w8a16_expert_matmul`: the
+  selected experts' int8 slices are gathered into the plain dequant dot,
+  so top-2-of-8 decode reads 1/4 of the bank's bytes;
+- **prefill** of per-channel quantized banks sorts the (token, expert)
+  selections by expert and runs `jax.lax.ragged_dot` over the expert
+  groups — routed k/E FLOPs; other banks (dense, group-wise) run a
+  `lax.scan` over experts whose outputs are masked by the routing weights
+  (exact, static shapes, E/k times the routed FLOPs);
 - **expert parallelism**: under shard_map the local bank holds E/p experts;
-  prefill takes the routed grouped path per shard when k < E/p (non-local
+  prefill takes the routed path per shard when k < E/p (non-local
   selections park on local expert 0 with a zero combine weight) and the
   masked scan otherwise; the decoder's existing row-parallel psum completes
   the combine (see models.transformer.decoder_layer).
@@ -28,17 +27,19 @@ without the runtime. This module is the runtime, TPU-native:
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import jax
 import jax.numpy as jnp
 
-from eetq_tpu.kernels.autotune import MAX_DECODE_M
-from eetq_tpu.kernels.w8a16 import w8a16_matmul_ref
 from eetq_tpu.layout import unpack_weights
 from eetq_tpu.modules.linear import DenseLinear, QuantLinear
-from eetq_tpu.ops.moe import w8a16_expert_matmul, w8a16_grouped_matmul
+from eetq_tpu.ops.linear import w8a16_matmul_ref
+from eetq_tpu.ops.moe import w8a16_expert_matmul
 from eetq_tpu.quant import symmetric_quantize
+
+# Routed decode gathers the selected experts while the selection count
+# stays this small; beyond it (prefill) the grouped or masked paths run.
+MAX_GATHER_SELECTIONS = 8
 
 _ACT = {"silu": jax.nn.silu, "gelu": jax.nn.gelu, "relu": jax.nn.relu}
 
@@ -103,56 +104,30 @@ def _gated(gu_out: jax.Array, activation: str, dtype) -> jax.Array:
     ).astype(dtype)
 
 
-def _grouped_bm(n_sel: int, e: int) -> int:
-    """Row-block size for the grouped prefill GEMM. 128 keeps the weight
-    stream compute-bound on the MXU (2*bm flops per int8 weight byte needs
-    bm >= ~120 at v5e's 197 TF/s / 819 GB/s); smaller prefills shrink bm
-    toward the balanced per-expert count so padding blocks stay bounded
-    (total blocks <= n_sel/bm + E, one partial block per expert).
-
-    EETQ_MOE_GROUPED_BM overrides (trace-time, like the other MoE knobs)
-    for on-hardware block-size A/Bs (scripts/bench_moe.py)."""
-    env = os.environ.get("EETQ_MOE_GROUPED_BM")
-    if env:
-        return int(env)
-    per = n_sel // max(e, 1)
-    return max(8, min(128, 8 * (per // 8) or 8))
-
-
 def moe_grouped_combine(
     moe: MoEMLP,
     x2: jax.Array,  # [T, H]
     topw: jax.Array,  # [T, k] f32
     topi: jax.Array,  # [T, k] int32 (GLOBAL expert ids)
     activation: str,
-    interpret: bool | None = None,
     tp_axis: str | None = None,
 ) -> jax.Array:
-    """Routed MoE prefill: token-grouped expert GEMM (MegaBlocks-style,
-    static shapes). Sort the (token, expert) selections by expert, pack
-    their activation rows into per-expert contiguous bm-row blocks, run
-    ONE grouped kernel per projection (each block's weight tiles are the
-    scalar-prefetched expert's), then un-sort and combine with the routing
-    weights. FLOPs are the ROUTED k/E fraction (+ <=1 padding block per
-    expert) instead of the masked scan's all-E dense compute — the prefill
-    counterpart of the decode gather's bandwidth win.
+    """Routed MoE prefill over per-channel quantized banks: sort the
+    (token, expert) selections by expert, run `jax.lax.ragged_dot` over the
+    expert groups (the int8 bank converts to x's dtype inside the dot, the
+    per-channel scales of each row's expert multiply the f32 result), then
+    un-sort and combine with the routing weights. FLOPs are the ROUTED k/E
+    fraction instead of the masked scan's all-E dense compute.
 
     Under EP (tp_axis set, local E/p bank): selections routed to OTHER
-    shards' experts keep their rows (static shapes demand worst-case
-    capacity) but compute against local expert 0 with a ZERO combine
-    weight, and the caller's psum completes the cross-shard sum. The
-    per-shard row count is therefore T*k regardless of p — cheaper than
-    the masked scan's T*E/p rows exactly when k < E/p (the caller gates
-    on that).
+    shards' experts keep their rows (static shapes) but compute against
+    local expert 0 with a ZERO combine weight, and the caller's psum
+    completes the cross-shard sum.
 
     Returns [T, H] f32 (caller casts / reshapes)."""
     t, h = x2.shape
     top_k = topi.shape[-1]
     e = moe.num_local_experts
-    n_sel = t * top_k
-    bm = _grouped_bm(n_sel, e)
-    nb = n_sel // bm + e  # static: <=1 partial block per expert
-
     eids = topi.reshape(-1)  # [S] global
     wflat = topw.reshape(-1)
     if tp_axis is not None:
@@ -163,43 +138,22 @@ def moe_grouped_combine(
         wflat = jnp.where(local, wflat, 0.0)
     order = jnp.argsort(eids, stable=True)  # sorted-selection -> selection
     e_sorted = eids[order]
-    tok_sorted = order // top_k
-    counts = jnp.sum(
-        jax.nn.one_hot(eids, e, dtype=jnp.int32), axis=0
-    )  # [E]
-    group_start = jnp.concatenate(
-        [jnp.zeros((1,), jnp.int32), jnp.cumsum(counts)[:-1]]
-    )
-    nb_e = -(-counts // bm)  # ceil: blocks per expert
-    cum_nb = jnp.cumsum(nb_e)
-    block_start = jnp.concatenate(
-        [jnp.zeros((1,), jnp.int32), cum_nb[:-1]]
-    )
-    blk = jnp.arange(nb, dtype=jnp.int32)
-    # block b belongs to the expert whose [block_start, block_start+nb_e)
-    # covers it; padding blocks past cum_nb[-1] clamp to a valid id (their
-    # rows are zero and never gathered back)
-    block_expert = jnp.minimum(
-        jnp.searchsorted(cum_nb, blk, side="right").astype(jnp.int32), e - 1
-    )
-    pos = jnp.arange(n_sel, dtype=jnp.int32) - group_start[e_sorted]
-    dest = block_start[e_sorted] * bm + pos  # [S] row in the packed buffer
+    counts = jnp.sum(jax.nn.one_hot(eids, e, dtype=jnp.int32), axis=0)
 
-    xg = jnp.zeros((nb * bm, h), x2.dtype).at[dest].set(x2[tok_sorted])
-    gu = w8a16_grouped_matmul(
-        xg, moe.gateup.qweight, moe.gateup.scales, block_expert,
-        interpret=interpret,
-    )
-    hidden = _gated(gu, activation, x2.dtype)
-    dn = w8a16_grouped_matmul(
-        hidden, moe.down.qweight, moe.down.scales, block_expert,
-        interpret=interpret,
-    )
-    contrib_sorted = dn[dest]  # [S, H] in sorted-selection order
-    # un-sort (scatter-set via the inverse permutation), then the weighted
-    # per-token sum over k in the ORIGINAL top-k order
+    def project(lin: QuantLinear, rows: jax.Array) -> jax.Array:
+        bank = unpack_weights(lin.qweight).astype(rows.dtype)  # [E, K, N]
+        acc = jax.lax.ragged_dot(
+            rows, bank, counts, preferred_element_type=jnp.float32
+        )
+        return (acc * lin.scales[e_sorted].astype(jnp.float32)).astype(
+            rows.dtype
+        )
+
+    xs = x2[order // top_k]  # [S, H] token rows in sorted order
+    hidden = _gated(project(moe.gateup, xs), activation, x2.dtype)
+    dn_sorted = project(moe.down, hidden)  # [S, H]
     contrib = (
-        jnp.zeros_like(contrib_sorted).at[order].set(contrib_sorted)
+        jnp.zeros_like(dn_sorted).at[order].set(dn_sorted)
     ).astype(jnp.float32)
     return jnp.sum(
         contrib.reshape(t, top_k, h)
@@ -214,8 +168,6 @@ def moe_apply(
     top_k: int,
     activation: str = "silu",
     tp_axis: str | None = None,
-    interpret: bool | None = None,
-    use_kernel: bool = True,
 ) -> jax.Array:
     """Routed MLP forward. x [B, S, H] (already normed) -> [B, S, H].
 
@@ -232,67 +184,45 @@ def moe_apply(
 
     e_local = moe.num_local_experts
     n_sel = t * top_k
-    gather_ok = (
+    per_channel = quantized and moe.gateup.scales.ndim == 2
+    if (
         quantized
-        and use_kernel
         and tp_axis is None
-        and n_sel <= min(MAX_DECODE_M, e_local)
-        # TRACE-TIME A/B knob (like EETQ_FUSED_MLP): read when the calling
-        # jit first traces — flipping it in-process after jit caching has
-        # no effect. Forces the masked-scan path at decode shapes (streams
-        # ALL experts' bytes); scripts/bench_moe.py uses it to measure the
-        # gather path's bandwidth win on hardware.
-        and os.environ.get("EETQ_MOE_NO_GATHER", "0") != "1"
-    )
-    grouped_ok = (
-        quantized
-        and use_kernel
-        and not gather_ok
-        and n_sel > MAX_DECODE_M
-        # Under EP every shard still packs T*k selection rows (non-local
-        # ones park on local expert 0 with zero weight — static shapes);
-        # the masked scan computes T*E_local rows per shard, so grouped
-        # only wins when k < E_local. tp=4 Mixtral (E_local=2=k) keeps the
-        # scan; tp=2 (E_local=4) takes the routed path.
-        and (tp_axis is None or top_k < e_local)
-        # trace-time A/B knob: force the masked scan (all-E dense FLOPs)
-        # at prefill shapes — scripts/bench_moe.py measures the routed win
-        and os.environ.get("EETQ_MOE_NO_GROUPED", "0") != "1"
-        and os.environ.get("EETQ_MOE_NO_GATHER", "0") != "1"
-    )
-    if grouped_ok:
-        # Prefill regime: token-grouped expert GEMM — routed k/E FLOPs
-        out2 = moe_grouped_combine(
-            moe, x2, topw, topi, activation, interpret=interpret,
-            tp_axis=tp_axis,
-        )
-        return out2.astype(x.dtype).reshape(b, s, h)
-    if gather_ok:
-        # Decode regime: one scalar-prefetched kernel per projection streams
-        # exactly the selected experts' weight tiles.
+        and n_sel <= min(MAX_GATHER_SELECTIONS, e_local)
+    ):
+        # Decode regime: gather exactly the selected experts' int8 slices.
         eids = topi.reshape(-1)
         sel = jnp.arange(n_sel)
         tok = sel // top_k
         gu_sel = w8a16_expert_matmul(
-            x2, moe.gateup.qweight, moe.gateup.scales, eids,
-            interpret=interpret,
+            x2, moe.gateup.qweight, moe.gateup.scales, eids
         )  # [n_sel, T, 2I]
         hidden = _gated(gu_sel[sel, tok], activation, x2.dtype)  # [n_sel, I]
         dn_sel = w8a16_expert_matmul(
-            hidden, moe.down.qweight, moe.down.scales, eids,
-            interpret=interpret,
+            hidden, moe.down.qweight, moe.down.scales, eids
         )  # [n_sel, n_sel, H]
         dn_rows = dn_sel[sel, sel].astype(jnp.float32)  # [n_sel, H]
         out2 = jnp.sum(
             dn_rows.reshape(t, top_k, h) * topw[..., None], axis=1
         )
         return out2.astype(x.dtype).reshape(b, s, h)
+    if (
+        per_channel
+        and n_sel > MAX_GATHER_SELECTIONS
+        # Under EP every shard still computes T*k selection rows (non-local
+        # ones park on local expert 0 with zero weight — static shapes);
+        # the masked scan computes T*E_local rows per shard, so the routed
+        # path only wins when k < E_local.
+        and (tp_axis is None or top_k < e_local)
+    ):
+        out2 = moe_grouped_combine(
+            moe, x2, topw, topi, activation, tp_axis=tp_axis
+        )
+        return out2.astype(x.dtype).reshape(b, s, h)
 
     # Dense-masked scan over (local) experts: coeff[t, e] = routing weight
     # if expert e was picked for token t else 0. Exact for any T.
-    e_global = (
-        moe.router.weight.shape[-1]
-    )
+    e_global = moe.router.weight.shape[-1]
     coeff = jnp.sum(
         jax.nn.one_hot(topi, e_global, dtype=jnp.float32) * topw[..., None],
         axis=-2,
@@ -300,28 +230,9 @@ def moe_apply(
     if tp_axis is not None and e_local != e_global:
         off = jax.lax.axis_index(tp_axis) * e_local
         coeff = jax.lax.dynamic_slice(coeff, (0, off), (t, e_local))
-        local_ids = jnp.arange(e_local, dtype=jnp.int32)  # bank-local
-    else:
-        local_ids = jnp.arange(e_local, dtype=jnp.int32)
     coeff_t = coeff.T  # [E_local, T]
 
-    if quantized and use_kernel:
-        gu_q, gu_s = moe.gateup.qweight, moe.gateup.scales
-        dn_q, dn_s = moe.down.qweight, moe.down.scales
-
-        def body(acc, ec):
-            eidx, c = ec
-            g_out = w8a16_expert_matmul(
-                x2, gu_q, gu_s, eidx[None], interpret=interpret
-            )[0]
-            hidden = _gated(g_out, activation, x2.dtype)
-            d_out = w8a16_expert_matmul(
-                hidden, dn_q, dn_s, eidx[None], interpret=interpret
-            )[0]
-            return acc + c[:, None] * d_out.astype(jnp.float32), None
-
-        xs = (local_ids, coeff_t)
-    elif quantized:
+    if quantized:
         gu_logical = unpack_weights(moe.gateup.qweight)
         dn_logical = unpack_weights(moe.down.qweight)
 

@@ -3,8 +3,7 @@
 The dense engine cache preallocates [max_batch, max_len] rows per layer —
 at llama2-7b shapes that is ~1 GB per slot for a 2 k context, so slot count
 is capped by the WORST-CASE context, not actual usage. Paging (the vLLM
-idea, re-done TPU-native) allocates fixed-size blocks from a shared pool as
-sequences grow:
+idea) allocates fixed-size blocks from a shared pool as sequences grow:
 
 - pool per layer: [num_blocks, Hkv, block_size, D] (+ per-token scale pool
   for int8), living entirely on device;
@@ -12,14 +11,11 @@ sequences grow:
   sequence to its physical pool block — the table rides in the cache
   pytree (tiny) and is rebuilt by the host allocator as blocks are
   granted/freed;
-- the decode kernel (kernels.flash_decode.paged_flash_decode) scalar-
-  prefetches lengths AND the table, translating logical block indices to
-  physical in the BlockSpec index map — Pallas DMAs exactly the blocks a
-  row actually uses, wherever they live in the pool;
+- decode gathers each row's blocks through its table into the logical
+  dense view and runs the dense decode attention on it;
 - decode writes are one batched scatter at (table[p // bs], :, p % bs).
 
-Block size is a multiple of 128 so pool blocks are whole Mosaic tiles and
-kernel DMA granularity matches the dense path's.
+Block size is a multiple of 128, the dense cache's allocation granule.
 """
 
 from __future__ import annotations
@@ -30,11 +26,10 @@ import jax
 import jax.numpy as jnp
 
 from eetq_tpu.modules.attention import (
-    NEG_INF,
-    _dequantize_kv,
+    KVCache,
     _quantize_kv,
     attention_decode_ref,
-    KVCache,
+    attention_verify,
 )
 
 
@@ -146,26 +141,15 @@ def paged_attention_verify(
     cache: PagedKVCache,
     lengths,
     window: int | None = None,
-    use_kernel: bool | None = None,
     slopes: jax.Array | None = None,
 ) -> jax.Array:
     """Multi-query verify over a paged cache. q [B, S, Hq, D]; lengths [B]
     valid positions INCLUDING the S verify tokens (query row i of row b
     sits at lengths[b] - S + i, per-row causal)."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        from eetq_tpu.kernels.flash_decode import paged_flash_decode
-
-        return paged_flash_decode(
-            q, cache, lengths, window=window, scale=scale, slopes=slopes
-        )
-    from eetq_tpu.modules.attention import attention_verify_ref
-
     max_len = cache.table.shape[1] * cache.block_size
     dense = paged_gather_dense(cache, max_len)
-    return attention_verify_ref(
+    return attention_verify(
         q, dense, jnp.asarray(lengths, jnp.int32), window, scale,
         slopes=slopes,
     )
@@ -214,8 +198,8 @@ def paged_insert_dense(
 
 
 def paged_gather_dense(cache: PagedKVCache, max_len: int) -> KVCache:
-    """Oracle/fallback: materialize the logical dense [B, Hkv, L, D] view
-    by gathering pool blocks through the table."""
+    """Materialize the logical dense [B, Hkv, L, D] view by gathering pool
+    blocks through the table."""
     bs = cache.block_size
     nb = max_len // bs
     tbl = cache.table[:, :nb]  # [B, nb]
@@ -240,20 +224,11 @@ def paged_attention_decode(
     cache: PagedKVCache,
     lengths,
     window: int | None = None,
-    use_kernel: bool | None = None,
     slopes: jax.Array | None = None,
 ) -> jax.Array:
     """Single-step decode over a paged cache. q [B, 1, Hq, D]; lengths [B]
     (valid positions INCLUDING the just-written token)."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        from eetq_tpu.kernels.flash_decode import paged_flash_decode
-
-        return paged_flash_decode(
-            q, cache, lengths, window=window, scale=scale, slopes=slopes
-        )
     max_len = cache.table.shape[1] * cache.block_size
     dense = paged_gather_dense(cache, max_len)
     return attention_decode_ref(q, dense, lengths, window, scale, slopes=slopes)

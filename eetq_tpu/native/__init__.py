@@ -1,6 +1,6 @@
 """Native host-side quantizer/packer (C++ + OpenMP, ctypes ABI).
 
-TPU-native counterpart of the reference's CPU preprocessing library
+The counterpart of the reference's CPU preprocessing library
 (`csrc/cutlass_kernels/cutlass_preprocessors.cc` + the build in `setup.py`):
 the O(K*N) per-column absmax/round/clip loops run multithreaded native code
 on host numpy weights during checkpoint conversion, keeping the dense fp16

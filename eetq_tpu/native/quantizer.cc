@@ -1,13 +1,13 @@
 // Host-side weight quantizer + packer (C++17 + OpenMP).
 //
-// The TPU-native counterpart of the reference's CPU preprocessing library
+// The counterpart of the reference's CPU preprocessing library
 // (`csrc/cutlass_kernels/cutlass_preprocessors.cc:581-678` symmetric_quantize
 // and `:497-534` preprocess_weights_for_mixed_gemm): quantizes HF checkpoint
 // weights on the host CPU — where they arrive from safetensors as numpy
-// arrays — before the int8 buffers are shipped to TPU HBM. The GPU
+// arrays — before the int8 buffers are shipped to device memory. The
 // reference needs ~700 lines of layout choreography (row permutes, subbyte
 // transpose, column interleave, sign bias) because its kernel consumes an
-// ldmatrix-specific layout; the TPU kernel consumes plain row-major tiles,
+// ldmatrix-specific layout; the matmuls here read plain row-major tiles,
 // so the native library is exactly the two hot loops:
 //
 //  - eetq_quantize_*: per-column (or per-K-group) absmax scales + round +

@@ -14,7 +14,6 @@ Here every op is a jitted JAX function:
 from eetq_tpu.ops.linear import w8a16_matmul
 from eetq_tpu.ops.moe import w8a16_expert_matmul
 from eetq_tpu.ops.linear8 import w8a8_matmul
-from eetq_tpu.ops.mlp import fused_mlp
 from eetq_tpu.quant import symmetric_quantize as quantize_weights
 from eetq_tpu.layout import pack_weights
 from eetq_tpu.ops.rope import rope, make_cos_sin_cache
@@ -25,7 +24,6 @@ __all__ = [
     "w8a16_matmul",
     "w8a16_expert_matmul",
     "w8a8_matmul",
-    "fused_mlp",
     "quantize_weights",
     "pack_weights",
     "rope",

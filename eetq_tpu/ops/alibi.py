@@ -4,8 +4,8 @@ The reference serves baichuan-13b — an ALiBi model — by delegating attention
 to HF's model code (`python/eetq/models/baichuan.py:1-106` only handles
 W_pack fusion/TP). Here attention is ours, so ALiBi is a first-class path:
 the per-head slopes computed below feed an additive `slope * (key_pos -
-query_pos)` bias inside the flash kernels and the XLA oracles
-(modules/attention.py, kernels/flash_attention.py, kernels/flash_decode.py).
+query_pos)` bias in the prefill, decode and verify attention paths
+(modules/attention.py).
 
 Slope convention (Press et al., "Train Short, Test Long"): for n a power of
 two, slope_h = 2^(-8(h+1)/n). For other n, the first p = 2^floor(log2 n)

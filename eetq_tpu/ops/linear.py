@@ -1,12 +1,18 @@
 """`w8a16_matmul` — the single user-facing quantized matmul entry.
 
 Mirrors `w8_a16_gemm_forward_cuda` (`csrc/cutlass_kernels/
-fpA_intB_gemm_wrapper.cu:130-173`): flatten leading dims to m x k, then
-dispatch on m between the decode-GEMV regime (m <= MAX_DECODE_M, reference
-m <= 4) and the prefill tiled-GEMM regime — here both are one Pallas kernel
-with different autotuned block configs. Unlike the reference (which re-runs
-its occupancy heuristic every call), the config choice is cached per shape
-and jit caches the compiled kernel.
+fpA_intB_gemm_wrapper.cu:130-173`): flatten leading dims to m x k and
+compute act(x @ dequant(W) + bias) [+|*] residual. The reference dispatches
+on m between a hand-written batched GEMV (m <= 4) and a CUTLASS
+mixed-input GEMM; here both regimes are one XLA program,
+`dot(x, convert(q)) * scales` with f32 accumulation (the convert fused
+into the dot for at most FUSED_CONVERT_MAX_M rows, materialized first for
+more, see `_converted`), and the per-channel scale is applied once to the
+f32 accumulator (scales commute
+with the K-sum — the invariant the reference keeps with its warp-level
+dequantizer, `mma_tensorop_dequantizer.h:152-183`). On the GPU, decode
+rows (m <= kernels.gemv.MAX_M, int8 per-channel) take the weight-streaming
+GEMV kernel in `eetq_tpu.kernels.gemv` instead.
 
 Supports int8 and int4 weights (the reference's Int8b/Int4b GEMV kernels),
 per-channel [N] or group-wise [K/g, N] scales (PerChannel / GroupWise
@@ -15,136 +21,99 @@ quant modes, `weightOnlyBatchedGemv/common.h:73-79`).
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
-from eetq_tpu.kernels.autotune import MatmulConfig, choose_config
-from eetq_tpu.kernels.w8a16 import Epilogue, w8a16_matmul_kernel_call, w8a16_matmul_ref
+from eetq_tpu import backend
+from eetq_tpu.kernels.gemv import MAX_M, int8_gemv
 from eetq_tpu.layout import PackedWeight, pack_weights, unpack_weights
 
+ACTIVATIONS = {
+    None: lambda x: x,
+    "relu": lambda x: jnp.maximum(x, 0.0),
+    "gelu": jax.nn.gelu,  # tanh approx, like ft_fused_activations.h:40-60
+    "silu": jax.nn.silu,
+}
 
-def _default_interpret() -> bool:
-    # Pallas TPU kernels run interpreted on CPU (tests, debugging); compiled
-    # on real TPU. The reference's analogue is interpret-mode = its unit
-    # "sanitizer" (SURVEY.md §5).
-    return jax.default_backend() != "tpu"
-
-
-def _ref_forward(x2, qw_logical, k, n, scales, bias, residual, activation,
-                 residual_mode):
-    """jnp dequant-matmul oracle on the logical weight."""
-    return w8a16_matmul_ref(
-        x2,
-        qw_logical,
-        scales,
-        bias=bias,
-        activation=activation,
-        residual=residual,
-        residual_mode=residual_mode,
-    )
+# Rows up to which the int8 -> bf16 convert stays fused into the dot (see
+# `_converted`): every decode batch the engine runs by default.
+FUSED_CONVERT_MAX_M = 64
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8, 9, 10, 11, 12))
-def _w8a16_matmul_core(
-    x2, qdata, scales, bias, residual,
-    k, n, bits, activation, residual_mode, config, interpret, use_kernel,
-):
-    """qdata: PackedWeight.data (padded, int4 nibble-packed); scales are
-    LOGICAL ([N] or [K/g, N])."""
-    if not use_kernel:
-        qw = unpack_weights(PackedWeight(data=qdata, k=k, n=n, bits=bits))
-        return _ref_forward(
-            x2, qw, k, n, scales, bias, residual, activation, residual_mode
-        )
-    m = x2.shape[0]
-    kp = qdata.shape[0] * (2 if bits == 4 else 1)
-    np_ = qdata.shape[1]
-    mp = -(-m // config.bm) * config.bm
-    # Zero-padding is exact: padded x columns multiply padded (zero) weight
-    # rows, and padded output rows/cols are sliced off.
-    xp = jnp.pad(x2, ((0, mp - m), (0, kp - k)))
+def w8a16_matmul_ref(
+    x: jax.Array,
+    qweight: jax.Array,
+    scales: jax.Array,
+    bias: jax.Array | None = None,
+    activation: str | None = None,
+    residual: jax.Array | None = None,
+    residual_mode: str = "add",
+) -> jax.Array:
+    """Dequant-matmul on the logical weight: the compute path of
+    `w8a16_matmul` and the oracle its tests compare against.
+
+    qweight: logical int8 [K, N] (int4 values sign-extended to int8).
+    scales: [N] per-channel or [G, N] group-wise.
+    Per-channel: the weight converts to x's dtype inside the dot, the dot
+    accumulates in f32, and the scale multiplies the accumulator.
+    Group-wise: each group's scale multiplies that group's f32 partial sum.
+    """
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if residual_mode not in ("add", "mul"):
+        raise ValueError(f"unknown residual mode {residual_mode!r}")
+    m = x.size // x.shape[-1]
     if scales.ndim == 1:
-        scales_p = jnp.pad(scales, (0, np_ - n)).astype(jnp.float32)
-    else:
-        gcount = scales.shape[0]
-        g = k // gcount
-        gp = kp // g  # padded group rows (zero weight rows -> any scale)
-        scales_p = jnp.pad(
-            scales.astype(jnp.float32), ((0, gp - gcount), (0, np_ - n))
+        acc = jnp.dot(
+            x, _converted(qweight, x.dtype, m),
+            preferred_element_type=jnp.float32,
         )
-    bias_p = None if bias is None else jnp.pad(bias, (0, np_ - n))
-    res_p = None
+        r = acc * scales.astype(jnp.float32)[None, :]
+    else:
+        kdim, n = qweight.shape
+        gcount = scales.shape[0]
+        lead = x.shape[:-1]
+        # [G, M, g] x [G, g, N] -> [G, M, N] f32 partial dots, the group axis
+        # leading on both operands and the output (the canonical batched
+        # GEMM), each group scaled, then summed
+        xg = x.reshape(-1, gcount, kdim // gcount).swapaxes(0, 1)
+        wg = _converted(qweight, x.dtype, m).reshape(
+            gcount, kdim // gcount, n)
+        parts = jax.lax.dot_general(
+            xg, wg, (((2,), (1,)), ((0,), (0,))),
+            preferred_element_type=jnp.float32,
+        )
+        r = jnp.sum(parts * scales.astype(jnp.float32)[:, None, :], axis=0)
+        r = r.reshape(*lead, n)
+    return _epilogue(r, bias, activation, residual, residual_mode, x.dtype)
+
+
+def _converted(qweight: jax.Array, dtype, m: int) -> jax.Array:
+    """The int weight converted to the activation dtype for an m-row dot.
+
+    With at most FUSED_CONVERT_MAX_M rows the convert stays inside the dot:
+    XLA's GEMM fusion then reads 1 byte per weight, which is what a
+    memory-bound decode step pays for. With more rows the bf16 weight is
+    materialized first (a bf16 copy written and read back, 4 more bytes
+    per weight, small next to a compute-bound GEMM). On an H100 under JAX
+    0.9.0, the Triton
+    GEMM with the convert fused that XLA's autotuner picks at some prefill
+    shapes writes NaN or garbage into a few output elements (4096x12288
+    at m=256, 8192x10240 at m=256 and m=500; none at m <= 64 over the
+    llama2 projection shapes; PERF.md)."""
+    w = qweight.astype(dtype)
+    return w if m <= FUSED_CONVERT_MAX_M else jax.lax.optimization_barrier(w)
+
+
+def _epilogue(r, bias, activation, residual, residual_mode, dtype):
+    """bias, activation and residual on the f32 accumulator r."""
+    if bias is not None:
+        r = r + bias.astype(jnp.float32)[None, :]
+    r = ACTIVATIONS[activation](r)
     if residual is not None:
-        res_p = jnp.pad(residual, ((0, mp - m), (0, np_ - n)))
-    epilogue = Epilogue(
-        has_bias=bias is not None,
-        activation=activation,
-        residual=None if residual is None else residual_mode,
-    )
-    # Emit exactly m rows when the grid has a single row-block (decode):
-    # slicing a Pallas output in XLA materializes a real copy per call.
-    emit_rows = m if (mp != m and mp == config.bm) else None
-    out = w8a16_matmul_kernel_call(
-        xp, qdata, scales_p, bias_p, res_p, config, epilogue, interpret,
-        bits=bits, out_rows=emit_rows,
-    )
-    if out.shape[0] != m:
-        out = out[:m]
-    if n != np_:
-        out = out[:, :n]
-    return out
-
-
-def _core_fwd(x2, qdata, scales, bias, residual, *statics):
-    out = _w8a16_matmul_core(x2, qdata, scales, bias, residual, *statics)
-    return out, (x2, qdata, scales, bias, residual)
-
-
-def _core_bwd(k, n, bits, activation, residual_mode, config, interpret,
-              use_kernel, saved, g):
-    """Backward for LoRA-over-frozen-quantized training (the reference's
-    hand-written `EetqLinearMMFunction.backward`, qlinear.py:64-94, which
-    dequantizes W and computes grad_input). Here we differentiate the jnp
-    dequant-matmul reference path — exact, and XLA fuses the dequant into
-    the transposed matmul. int8 qweight gets a float0 cotangent (frozen)."""
-    x2, qdata, scales, bias, residual = saved
-    _, vjp = jax.vjp(
-        lambda xx, qq, ss, bb, rr: _ref_forward(
-            xx,
-            unpack_weights(PackedWeight(data=qq, k=k, n=n, bits=bits)),
-            k, n, ss, bb, rr, activation, residual_mode,
-        ),
-        x2, qdata, scales, bias, residual,
-    )
-    # int8 qdata gets a float0 cotangent automatically (frozen weights)
-    return vjp(g)
-
-
-_w8a16_matmul_core.defvjp(_core_fwd, _core_bwd)
-
-
-def _compatible_config(
-    config: MatmulConfig, kp_data: int, group_size: int | None, bits: int
-) -> MatmulConfig:
-    """Shrink bk if needed so the group constraint holds (bk % g == 0 or
-    g % bk == 0; int4 requires bk % g == 0)."""
-    g = group_size
-    if g is None:
-        return config
-    # bk counts packed weight rows; for int4 each half-block covers bk
-    # LOGICAL rows, so the group constraint is in logical units either way.
-    bk = config.bk
-    if bk % g == 0 or (bits != 4 and g % bk == 0):
-        return config
-    # largest multiple of g that divides kp_data and is <= bk
-    cand = (bk // g) * g
-    while cand >= g:
-        if kp_data % cand == 0:
-            return MatmulConfig(bm=config.bm, bn=config.bn, bk=cand)
-        cand -= g
-    return MatmulConfig(bm=config.bm, bn=config.bn, bk=g)
+        res = residual.astype(jnp.float32)
+        r = r + res if residual_mode == "add" else r * res
+    return r.astype(dtype)
 
 
 def w8a16_matmul(
@@ -155,9 +124,6 @@ def w8a16_matmul(
     activation: str | None = None,
     residual: jax.Array | None = None,
     residual_mode: str = "add",
-    config: MatmulConfig | None = None,
-    interpret: bool | None = None,
-    use_kernel: bool = True,
     bits: int = 8,
     prenorm_gamma: jax.Array | None = None,
     prenorm_eps: float = 1e-6,
@@ -167,137 +133,53 @@ def w8a16_matmul(
     Args:
       x: [..., K] float (bf16 recommended).
       qweight: PackedWeight (preferred; pack once offline) or raw int8 [K, N]
-        one-value-per-int8 (packed on the fly — convenient but repads per
-        call; pass `bits=4` for int4 values).
+        one-value-per-int8 (packed on the fly; pass `bits=4` for int4
+        values).
       scales: [N] per-output-channel or [K/g, N] group-wise scales.
       bias: optional [N].
-      activation: None | "relu" | "gelu" | "silu" (fused epilogue).
-      residual: optional [..., N] fused residual; residual_mode "add"|"mul".
-      config: override the autotuned block config.
-      interpret: force Pallas interpret mode (defaults to True off-TPU).
-      use_kernel: False -> pure-jnp reference path (testing).
+      activation: None | "relu" | "gelu" | "silu".
+      residual: optional [..., N]; residual_mode "add"|"mul".
       bits: weight bit-width when passing a raw int8 array (ignored for
         PackedWeight, which knows its own).
-      prenorm_gamma: optional [K] RMSNorm gain — fuses
-        ``rmsnorm(x, gamma, prenorm_eps)`` into the kernel prologue when
-        the chosen config has whole-K int8 per-channel blocks (the decode
-        regime); otherwise the norm is applied as a jnp op first.
-        Differentiable (the fused path's VJP runs the rmsnorm->matmul
-        reference composition).
+      prenorm_gamma: optional [K] RMSNorm gain: ``rmsnorm(x, gamma,
+        prenorm_eps)`` is applied first (XLA fuses it into the producer of
+        the dot's input).
     """
     if not isinstance(qweight, PackedWeight):
         qweight = pack_weights(qweight, bits=bits)
-    bits = qweight.bits
     k, n = qweight.k, qweight.n
     *lead, xk = x.shape
     if xk != k:
         raise ValueError(f"x feature dim {xk} != weight K {k}")
-    group_size = None
-    if scales.ndim == 2:
-        if k % scales.shape[0]:
-            raise ValueError(
-                f"scale rows {scales.shape[0]} must divide K {k}"
-            )
-        group_size = k // scales.shape[0]
-        if qweight.kp % group_size:
-            raise ValueError(
-                f"group size {group_size} must divide padded K {qweight.kp} "
-                f"(pad K to a group multiple before packing)"
-            )
+    if scales.ndim == 2 and k % scales.shape[0]:
+        raise ValueError(f"scale rows {scales.shape[0]} must divide K {k}")
+    if prenorm_gamma is not None:
+        from eetq_tpu.ops.rmsnorm import rmsnorm
+
+        x = rmsnorm(x, prenorm_gamma, eps=prenorm_eps)
     m = 1
     for d in lead:
         m *= d
-    x2 = x.reshape(m, k)
     res2 = None if residual is None else residual.reshape(m, n)
-
-    if config is None:
-        config = choose_config(m, qweight.data.shape[-2], qweight.np, bits)
-    config = _compatible_config(
-        config, qweight.data.shape[-2], group_size, bits
+    if backend.use_gemv_kernel(m) and qweight.bits == 8 and scales.ndim == 1:
+        # decode regime on the GPU: the weight-streaming GEMV kernel reads
+        # the padded int8 layout directly
+        x2 = jnp.pad(x.reshape(m, k), ((0, 0), (0, qweight.kp - k)))
+        scales_p = jnp.pad(scales.astype(jnp.float32), (0, qweight.np - n))
+        acc = int8_gemv(x2, qweight.data, scales_p)[:, :n]
+        out = _epilogue(acc, bias, activation, res2, residual_mode, x.dtype)
+        return out.reshape(*lead, n)
+    x2 = x.reshape(m, k)
+    if m < MAX_M:
+        # every decode-regime call runs the same [MAX_M, K] program, so a
+        # row's result does not depend on how many rows share the call: a
+        # speculative verify's projections over k+1 rows reproduce those
+        # of sequential decode bit for bit
+        x2 = jnp.pad(x2, ((0, MAX_M - m), (0, 0)))
+        if res2 is not None:
+            res2 = jnp.pad(res2, ((0, MAX_M - m), (0, 0)))
+    out = w8a16_matmul_ref(
+        x2, unpack_weights(qweight), scales, bias=bias,
+        activation=activation, residual=res2, residual_mode=residual_mode,
     )
-    if interpret is None:
-        interpret = _default_interpret()
-
-    if prenorm_gamma is not None:
-        kp_data, np_ = qweight.data.shape
-        fusible = (
-            use_kernel
-            and bits == 8
-            and group_size is None
-            and config.bk == kp_data
-        )
-        if fusible:
-            return _w8a16_prenorm_call(
-                x2, qweight.data, scales, bias, res2, prenorm_gamma,
-                k, n, activation, residual_mode, config, interpret,
-                prenorm_eps,
-            ).reshape(*lead, n)
-        from eetq_tpu.ops.rmsnorm import rmsnorm
-
-        x2 = rmsnorm(x2, prenorm_gamma, eps=prenorm_eps)
-
-    out = _w8a16_matmul_core(
-        x2, qweight.data, scales, bias, res2,
-        k, n, bits, activation, residual_mode, config, interpret, use_kernel,
-    )
-    return out.reshape(*lead, n)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(6, 7, 8, 9, 10, 11, 12))
-def _w8a16_prenorm_call(
-    x2, qdata, scales, bias, residual, gamma,
-    k, n, activation, residual_mode, config, interpret, eps,
-):
-    """Kernel path with the RMSNorm prologue fused. Forward runs the fused
-    Pallas kernel; the VJP differentiates the rmsnorm -> dequant-matmul
-    reference composition (exact; frozen int8 weights get float0)."""
-    m = x2.shape[0]
-    kp, np_ = qdata.shape
-    mp = -(-m // config.bm) * config.bm
-    xp = jnp.pad(x2, ((0, mp - m), (0, kp - k)))
-    gamma_p = jnp.pad(gamma.astype(jnp.float32), (0, kp - k))
-    scales_p = jnp.pad(scales, (0, np_ - n)).astype(jnp.float32)
-    bias_p = None if bias is None else jnp.pad(bias, (0, np_ - n))
-    res_p = None
-    if residual is not None:
-        res_p = jnp.pad(residual, ((0, mp - m), (0, np_ - n)))
-    epilogue = Epilogue(
-        has_bias=bias is not None,
-        activation=activation,
-        residual=None if residual is None else residual_mode,
-    )
-    emit_rows = m if (mp != m and mp == config.bm) else None
-    out = w8a16_matmul_kernel_call(
-        xp, qdata, scales_p, bias_p, res_p, config, epilogue, interpret,
-        bits=8, out_rows=emit_rows,
-        prenorm=(float(eps), 1.0 / float(k)), prenorm_gamma=gamma_p,
-    )
-    if out.shape[0] != m:
-        out = out[:m]
-    if n != np_:
-        out = out[:, :n]
-    return out
-
-
-def _prenorm_fwd(x2, qdata, scales, bias, residual, gamma, *statics):
-    out = _w8a16_prenorm_call(x2, qdata, scales, bias, residual, gamma, *statics)
-    return out, (x2, qdata, scales, bias, residual, gamma)
-
-
-def _prenorm_bwd(k, n, activation, residual_mode, config, interpret, eps,
-                 saved, g):
-    from eetq_tpu.ops.rmsnorm import rmsnorm
-
-    x2, qdata, scales, bias, residual, gamma = saved
-    _, vjp = jax.vjp(
-        lambda xx, qq, ss, bb, rr, gg: _ref_forward(
-            rmsnorm(xx, gg, eps=eps),
-            unpack_weights(PackedWeight(data=qq, k=k, n=n, bits=8)),
-            k, n, ss, bb, rr, activation, residual_mode,
-        ),
-        x2, qdata, scales, bias, residual, gamma,
-    )
-    return vjp(g)
-
-
-_w8a16_prenorm_call.defvjp(_prenorm_fwd, _prenorm_bwd)
+    return out[:m].reshape(*lead, n)

@@ -1,10 +1,17 @@
 """`w8a8_matmul` — full-int8 matmul with dynamic per-token activation
 quantization (the live version of the reference's unused W8A8 epilogue
-infrastructure, SURVEY.md §2.2 epilogue extensions row).
+infrastructure, SURVEY.md §2.2 epilogue extensions row: per-row/per-col
+rescale epilogues, QuantMode{PerToken,PerChannel}).
 
-Also covers **W4A8** (int4 split-half-packed weights unpacked to int8
-in-kernel, s8xs8 MXU) — per-channel AND group-wise scales — so int4
-models get the same 2x-bf16-peak prefill path int8 models do.
+The product is `lax.dot_general(int8, int8, preferred_element_type=int32)`,
+which XLA hands to the GPU's int8 tensor cores; token and channel scales
+multiply the int32 result. int4 weights (**W4A8**) are unpacked to int8
+first, per-channel or group-wise.
+
+Intended for the prefill regime (compute-bound; decode is weight-bandwidth
+bound, where int8 activations buy nothing). Accuracy: per-token absmax int8
+activations are the standard "W8A8 smooth-free" tradeoff; use W8A16 when
+logits-exactness matters.
 """
 
 from __future__ import annotations
@@ -12,15 +19,62 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from eetq_tpu.kernels.autotune import MatmulConfig, choose_config
-from eetq_tpu.kernels.w8a16 import Epilogue
-from eetq_tpu.kernels.w8a8 import (
-    quantize_activations,
-    w4a8_matmul_kernel_call,
-    w8a8_matmul_kernel_call,
-    w8a8_matmul_ref,
-)
-from eetq_tpu.layout import PackedWeight, pack_weights
+from eetq_tpu.layout import PackedWeight, pack_weights, unpack_weights
+from eetq_tpu.ops.linear import ACTIVATIONS
+
+
+@jax.jit
+def quantize_activations(x: jax.Array) -> tuple[jax.Array, jax.Array]:
+    """Per-token (last-axis) symmetric int8 quantization of activations.
+
+    x: [..., K] float. Returns (q int8 [..., K], scales f32 [...]).
+    """
+    xf = x.astype(jnp.float32)
+    absmax = jnp.max(jnp.abs(xf), axis=-1)
+    scale = absmax / 127.0
+    safe = jnp.where(scale == 0.0, 1.0, scale)
+    q = jnp.clip(
+        jnp.round(xf / safe[..., None]), -127, 127
+    ).astype(jnp.int8)
+    return q, scale
+
+
+def _idot(a: jax.Array, b: jax.Array) -> jax.Array:
+    """s8 x s8 -> s32 contraction of a's last axis with b's first."""
+    return jax.lax.dot_general(
+        a, b, (((a.ndim - 1,), (0,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )
+
+
+def w8a8_matmul_ref(x, qweight, w_scales, bias=None, activation=None):
+    """Per-token quantize activations, integer matmul, dequant.
+
+    qweight: logical int8 [K, N] (int4 values sign-extended).
+    w_scales: [N] per-channel, or [G, N] group-wise (g = K // G) — the
+    group-wise case dequantizes per-group integer partial sums.
+    """
+    xq, sx = quantize_activations(x)
+    if w_scales.ndim == 1:
+        acc = _idot(xq, qweight).astype(jnp.float32)
+        r = acc * sx[..., None] * w_scales.astype(jnp.float32)
+    else:
+        gcount = w_scales.shape[0]
+        k, n = qweight.shape
+        g = k // gcount
+        part = jnp.einsum(
+            "...gk,gkn->...gn",
+            xq.reshape(*xq.shape[:-1], gcount, g),
+            qweight.reshape(gcount, g, n),
+            preferred_element_type=jnp.int32,
+        ).astype(jnp.float32)
+        r = jnp.einsum(
+            "...gn,gn->...n", part, w_scales.astype(jnp.float32)
+        ) * sx[..., None]
+    if bias is not None:
+        r = r + bias.astype(jnp.float32)
+    r = ACTIVATIONS[activation](r)
+    return r.astype(x.dtype)
 
 
 def w8a8_matmul(
@@ -29,23 +83,16 @@ def w8a8_matmul(
     scales: jax.Array,
     bias: jax.Array | None = None,
     activation: str | None = None,
-    config: MatmulConfig | None = None,
-    interpret: bool | None = None,
-    use_kernel: bool = True,
 ) -> jax.Array:
     """out = act((int8(x) @ intW) * row_scale * col_scale + bias).
 
-    x: [..., K] float. Weights: int8 per-channel (W8A8), or int4
-    split-half-packed with per-channel or group-wise scales (W4A8; the
-    in-kernel biased-nibble unpack yields int8 operands for the s8xs8
-    MXU). Compute-bound regime (prefill): 2x bf16 MXU throughput.
-    int8 group-wise stays on the W8A16 path (rare; no int8 a8 kernel for
-    it).
+    x: [..., K] float. Weights: int8 per-channel (W8A8), or int4 with
+    per-channel or group-wise scales (W4A8). int8 group-wise stays on the
+    W8A16 path.
     """
     if not isinstance(qweight, PackedWeight):
         qweight = pack_weights(qweight)
-    bits = qweight.bits
-    if bits == 8 and scales.ndim != 1:
+    if qweight.bits == 8 and scales.ndim != 1:
         raise ValueError(
             "a8 with int8 weights needs per-channel scales "
             "(group-wise int8 stays on the W8A16 path)"
@@ -54,55 +101,6 @@ def w8a8_matmul(
     *lead, xk = x.shape
     if xk != k:
         raise ValueError(f"x feature dim {xk} != weight K {k}")
-    m = 1
-    for d in lead:
-        m *= d
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if not use_kernel:
-        from eetq_tpu.layout import unpack_weights
-
-        return w8a8_matmul_ref(
-            x.reshape(m, k), unpack_weights(qweight), scales, bias, activation
-        ).reshape(*lead, n)
-
-    kp_data, np_ = qweight.data.shape
-    kp = kp_data * (2 if bits == 4 else 1)  # logical padded K
-    if config is None:
-        config = choose_config(m, kp_data, np_)
-    group_size = None if scales.ndim == 1 else k // scales.shape[0]
-    if group_size is not None:
-        from eetq_tpu.ops.linear import _compatible_config
-
-        config = _compatible_config(config, kp_data, group_size, bits)
-    xq, sx = quantize_activations(x.reshape(m, k))
-    mp = -(-m // config.bm) * config.bm
-    xq_p = jnp.pad(xq, ((0, mp - m), (0, kp - k)))
-    sx_p = jnp.pad(sx, (0, mp - m)).reshape(mp, 1)
-    if scales.ndim == 1:
-        scales_p = jnp.pad(
-            scales.astype(jnp.float32), (0, np_ - n)
-        ).reshape(1, np_)
-    else:
-        gp = kp // group_size  # padded group rows (zero weight rows)
-        scales_p = jnp.pad(
-            scales.astype(jnp.float32),
-            ((0, gp - scales.shape[0]), (0, np_ - n)),
-        )
-    bias_p = None if bias is None else jnp.pad(bias, (0, np_ - n))
-    epilogue = Epilogue(has_bias=bias is not None, activation=activation)
-    if bits == 4:
-        out = w4a8_matmul_kernel_call(
-            xq_p, qweight.data, sx_p, scales_p, bias_p, None, config,
-            epilogue, out_dtype=x.dtype, interpret=interpret,
-        )
-    else:
-        out = w8a8_matmul_kernel_call(
-            xq_p, qweight.data, sx_p, scales_p, bias_p, None, config,
-            epilogue, out_dtype=x.dtype, interpret=interpret,
-        )
-    if out.shape[0] != m:
-        out = out[:m]
-    if n != np_:
-        out = out[:, :n]
-    return out.reshape(*lead, n)
+    return w8a8_matmul_ref(
+        x.reshape(-1, k), unpack_weights(qweight), scales, bias, activation
+    ).reshape(*lead, n)

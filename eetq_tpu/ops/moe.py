@@ -5,10 +5,8 @@ The MoE extension of `ops.linear.w8a16_matmul`: the weight is a 3-D
 batched-weight quantization, `fpA_intB_gemm_wrapper.cu:44-66` /
 `cutlass_preprocessors.cc:594-614`, but ships no runtime for it — here the
 runtime exists). Per selection s, out[s] = x @ dequant(bank[expert_ids[s]]):
-the expert ids are scalar-prefetched into the Pallas grid so only the
-selected experts' weight tiles are ever DMA'd from HBM — no per-expert
-dynamic-slice copies, which is what makes top-k routed decode
-bandwidth-optimal (k/E of the bank's bytes per step).
+the selected experts' int8 slices are gathered and fed to the plain
+dequant dot, so a routed decode step reads k/E of the bank's bytes.
 """
 
 from __future__ import annotations
@@ -16,14 +14,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from eetq_tpu.kernels.autotune import MatmulConfig, choose_config
-from eetq_tpu.kernels.w8a16 import (
-    w8a16_expert_matmul_kernel_call,
-    w8a16_grouped_matmul_kernel_call,
-    w8a16_matmul_ref,
-)
 from eetq_tpu.layout import PackedWeight, unpack_weights
-from eetq_tpu.ops.linear import _compatible_config, _default_interpret
+from eetq_tpu.ops.linear import w8a16_matmul_ref
 
 
 def expert_matmul_ref(
@@ -32,7 +24,7 @@ def expert_matmul_ref(
     scales: jax.Array,
     expert_ids: jax.Array,
 ) -> jax.Array:
-    """jnp oracle: [n_sel, m, N] = x @ dequant(bank[eid]) per selection.
+    """[n_sel, m, N] = x @ dequant(bank[eid]) per selection.
 
     qweight_logical: int8 [E, K, N] (int4 sign-extended); scales [E, N] or
     [E, G, N].
@@ -47,9 +39,6 @@ def w8a16_expert_matmul(
     qweight: PackedWeight,
     scales: jax.Array,
     expert_ids: jax.Array,
-    config: MatmulConfig | None = None,
-    interpret: bool | None = None,
-    use_kernel: bool = True,
 ) -> jax.Array:
     """out[s] = x @ dequant(qweight[expert_ids[s]], scales[expert_ids[s]]).
 
@@ -64,163 +53,23 @@ def w8a16_expert_matmul(
     """
     if qweight.data.ndim != 3:
         raise ValueError(f"expert bank must be 3-D, got {qweight.data.shape}")
-    bits = qweight.bits
-    k, n = qweight.k, qweight.n
+    k = qweight.k
     m, xk = x.shape
     if xk != k:
         raise ValueError(f"x feature dim {xk} != weight K {k}")
-    e = qweight.data.shape[0]
-    group_size = None
     if scales.ndim == 3:
         if k % scales.shape[1]:
             raise ValueError(
                 f"scale rows {scales.shape[1]} must divide K {k}"
             )
-        group_size = k // scales.shape[1]
-        if qweight.kp % group_size:
-            raise ValueError(
-                f"group size {group_size} must divide padded K {qweight.kp}"
-            )
     elif scales.ndim != 2:
         raise ValueError(f"scales must be [E, N] or [E, G, N], got {scales.shape}")
-
-    if interpret is None:
-        interpret = _default_interpret()
-    if not use_kernel:
-        qw = unpack_weights(qweight)
-        return expert_matmul_ref(x, qw, scales, expert_ids).astype(x.dtype)
-
-    kp = qweight.kp
-    kp_data, np_ = qweight.data.shape[-2], qweight.data.shape[-1]
-    if config is None:
-        config = choose_config(m, kp_data, np_, bits)
-    config = _compatible_config(config, kp_data, group_size, bits)
-
-    mp = -(-m // config.bm) * config.bm
-    xp = jnp.pad(x, ((0, mp - m), (0, kp - k)))
-    if scales.ndim == 2:
-        scales_p = jnp.pad(scales, ((0, 0), (0, np_ - n))).astype(jnp.float32)
-        scales_p = scales_p.reshape(e, 1, np_)
-    else:
-        gcount = scales.shape[1]
-        g = k // gcount
-        gp = kp // g
-        scales_p = jnp.pad(
-            scales.astype(jnp.float32), ((0, 0), (0, gp - gcount), (0, np_ - n))
-        )
-    emit_rows = m if (mp != m and mp == config.bm) else None
-    out = w8a16_expert_matmul_kernel_call(
-        xp, qweight.data, scales_p, expert_ids, config, interpret,
-        bits=bits, group_size=group_size, out_rows=emit_rows,
+    # gather the selected experts' PACKED slices first, so only their bytes
+    # are read and unpacked
+    sel = PackedWeight(
+        data=jnp.take(qweight.data, expert_ids, axis=0), k=k, n=qweight.n,
+        bits=qweight.bits,
     )
-    if out.shape[1] != m:
-        out = out[:, :m]
-    if n != np_:
-        out = out[:, :, :n]
-    return out
-
-
-def grouped_matmul_ref(
-    x: jax.Array,
-    qweight_logical: jax.Array,
-    scales: jax.Array,
-    block_expert: jax.Array,
-    bm: int,
-) -> jax.Array:
-    """jnp oracle for the grouped GEMM: row block b of x multiplies
-    dequant(bank[block_expert[b]]). Python loop over blocks with concrete
-    `block_expert` (it is a test oracle), each through `expert_matmul_ref`
-    — XLA CPU's DotThunk rejects the group-wise bf16 einsum unless it is
-    under the vmap-with-closed-x lowering that expert_matmul_ref takes."""
-    import numpy as _np
-
-    be = _np.asarray(block_expert)
-    outs = [
-        expert_matmul_ref(
-            x[i * bm : (i + 1) * bm], qweight_logical, scales,
-            jnp.asarray([int(e)], jnp.int32),
-        )[0]
-        for i, e in enumerate(be)
-    ]
-    return jnp.concatenate(outs, axis=0)
-
-
-def w8a16_grouped_matmul(
-    x: jax.Array,
-    qweight: PackedWeight,
-    scales: jax.Array,
-    block_expert: jax.Array,
-    config: MatmulConfig | None = None,
-    interpret: bool | None = None,
-    use_kernel: bool = True,
-) -> jax.Array:
-    """Token-grouped expert GEMM over a stacked bank (routed MoE prefill).
-
-    Args:
-      x: [M, K] float with M = nb * bm — activation rows PRE-SORTED so
-        every bm-row block belongs to one expert (pad blocks with zero
-        rows; their outputs are dropped by the caller's gather).
-      qweight: 3-D PackedWeight bank (data [E, Kp, Np]).
-      scales: [E, N] per-channel or [E, G, N] group-wise.
-      block_expert: [nb] int32 expert per row block (valid ids everywhere,
-        including padding blocks).
-
-    Returns [M, N] in x.dtype.
-    """
-    if qweight.data.ndim != 3:
-        raise ValueError(f"expert bank must be 3-D, got {qweight.data.shape}")
-    bits = qweight.bits
-    k, n = qweight.k, qweight.n
-    m, xk = x.shape
-    nb = block_expert.shape[0]
-    if xk != k:
-        raise ValueError(f"x feature dim {xk} != weight K {k}")
-    if m % nb:
-        raise ValueError(f"rows {m} must divide into {nb} blocks")
-    bm = m // nb
-    group_size = None
-    if scales.ndim == 3:
-        if k % scales.shape[1]:
-            raise ValueError(f"scale rows {scales.shape[1]} must divide K {k}")
-        group_size = k // scales.shape[1]
-        if qweight.kp % group_size:
-            raise ValueError(
-                f"group size {group_size} must divide padded K {qweight.kp}"
-            )
-    elif scales.ndim != 2:
-        raise ValueError(f"scales must be [E, N] or [E, G, N], got {scales.shape}")
-
-    if interpret is None:
-        interpret = _default_interpret()
-    if not use_kernel:
-        qw = unpack_weights(qweight)
-        return grouped_matmul_ref(x, qw, scales, block_expert, bm).astype(
-            x.dtype
-        )
-
-    kp = qweight.kp
-    e = qweight.data.shape[0]
-    kp_data, np_ = qweight.data.shape[-2], qweight.data.shape[-1]
-    if config is None:
-        config = choose_config(bm, kp_data, np_, bits)
-    config = MatmulConfig(bm=bm, bn=config.bn, bk=config.bk)
-    config = _compatible_config(config, kp_data, group_size, bits)
-
-    xp = jnp.pad(x, ((0, 0), (0, kp - k)))
-    if scales.ndim == 2:
-        scales_p = jnp.pad(scales, ((0, 0), (0, np_ - n))).astype(jnp.float32)
-        scales_p = scales_p.reshape(e, 1, np_)
-    else:
-        gcount = scales.shape[1]
-        g = k // gcount
-        gp = kp // g
-        scales_p = jnp.pad(
-            scales.astype(jnp.float32), ((0, 0), (0, gp - gcount), (0, np_ - n))
-        )
-    out = w8a16_grouped_matmul_kernel_call(
-        xp, qweight.data, scales_p, block_expert, config, interpret,
-        bits=bits, group_size=group_size,
-    )
-    if n != np_:
-        out = out[:, :n]
-    return out
+    s_sel = jnp.take(scales, expert_ids, axis=0)
+    w_sel = unpack_weights(sel)
+    return jax.vmap(lambda w, s: w8a16_matmul_ref(x, w, s))(w_sel, s_sel)

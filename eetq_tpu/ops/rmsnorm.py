@@ -1,8 +1,8 @@
 """RMSNorm (T5/Llama-style layernorm, no mean subtraction, no bias).
 
 Mirrors `generalT5LayerNorm` (`csrc/layernorm_kernels/layernorm.cu:25-51`):
-out = x * rsqrt(mean(x^2) + eps) * gamma, reduction in f32. On TPU, XLA fuses
-this to a bandwidth-bound VPU loop on its own — a Pallas version measured no
+out = x * rsqrt(mean(x^2) + eps) * gamma, reduction in f32. XLA fuses
+this into a bandwidth-bound loop on its own — a hand-written version measured no
 faster — so jnp is the implementation (SURVEY.md §2.2 RMSNorm row).
 """
 

@@ -7,8 +7,8 @@ builder (`python/eetq/modules/llama_modules.py:33-45`): the cache is
 rot_dim/2, and rotation uses the NeoX split-half convention
 (x_index = i, y_index = rot_dim/2 + i).
 
-On TPU this is pure elementwise VPU work that XLA fuses into neighbouring
-ops, so it is expressed as jnp (a dedicated Pallas kernel would only add
+This is pure elementwise work that XLA fuses into neighbouring
+ops, so it is expressed as jnp (a dedicated kernel would only add
 dispatch overhead); the fused attention layer inlines it under jit.
 """
 

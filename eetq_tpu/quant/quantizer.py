@@ -12,7 +12,7 @@ Semantics mirror the reference host quantizer
 
 Unlike the reference (a ~700-line OpenMP C++ loop nest), this is a handful of
 jitted JAX array ops: the quantization itself runs on whatever backend is
-available (CPU or TPU) and vectorizes trivially.
+available (CPU or GPU) and vectorizes trivially.
 """
 
 from __future__ import annotations

@@ -2,8 +2,7 @@
 
 The reference is a library consumed by HTTP serving hosts — TGI, LoRAX,
 vLLM (`/root/reference/README.md:88-101`); it ships no server of its own.
-This module is the TPU-native equivalent of that last mile: a
-dependency-free threaded HTTP server exposing the Engine with per-token
+This module is that last mile here: a dependency-free threaded HTTP server exposing the Engine with per-token
 streaming, so a user switching from `--quantize eetq` under TGI has an
 HTTP endpoint here too.
 

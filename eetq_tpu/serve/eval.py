@@ -21,8 +21,8 @@ from eetq_tpu.models.config import ModelConfig
 from eetq_tpu.models.transformer import ModelParams, forward
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "use_flash"))
-def _window_nll(params, cfg, tokens, mask, use_flash: bool = True):
+@functools.partial(jax.jit, static_argnames=("cfg",))
+def _window_nll(params, cfg, tokens, mask):
     """Sum NLL + token count for one [B, S] window.
 
     tokens[:, :-1] predict tokens[:, 1:]; mask marks REAL target positions
@@ -31,7 +31,7 @@ def _window_nll(params, cfg, tokens, mask, use_flash: bool = True):
     b, s = tokens.shape
     positions = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32), (b, s))
     logits, _ = forward(
-        params, cfg, tokens, positions, None, jnp.int32(0), use_flash=use_flash
+        params, cfg, tokens, positions, None, jnp.int32(0)
     )
     logp = jax.nn.log_softmax(logits[:, :-1, :].astype(jnp.float32), axis=-1)
     tgt = tokens[:, 1:]
@@ -46,7 +46,6 @@ def perplexity(
     token_ids,
     window: int = 2048,
     batch_size: int = 1,
-    use_flash: bool = True,
 ) -> float:
     """Sliding (non-overlapping) window perplexity over a 1-D token stream.
 
@@ -78,7 +77,6 @@ def perplexity(
             cfg,
             jnp.asarray(chunks[i : i + batch_size]),
             jnp.asarray(masks[i : i + batch_size]),
-            use_flash,
         )
         total_nll += float(nll)
         total_cnt += float(cnt)

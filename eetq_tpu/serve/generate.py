@@ -1,7 +1,7 @@
 """Generation loop: jitted prefill + jitted single-token decode step.
 
 The reference delegates generation entirely to HF `transformers.generate`
-(`models/base.py:65-72`); on TPU we own the loop. Shapes are static per
+(`models/base.py:65-72`); here the loop is owned by the program. Shapes are static per
 (batch, prompt-bucket, max_len) so everything compiles once; the KV cache is
 preallocated and threaded functionally through the decode steps.
 """
@@ -29,30 +29,26 @@ def _sample(logits, key, cfg, temperature: float, top_k: int):
     return jax.random.categorical(key, logits).astype(jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "use_flash", "a8"))
-def prefill(params, cfg, tokens, caches, use_flash: bool = True,
-            a8: bool = False):
+@functools.partial(jax.jit, static_argnames=("cfg", "a8"))
+def prefill(params, cfg, tokens, caches, a8: bool = False):
     """tokens: [B, S] full prompt. Returns (last-token logits [B, V], caches).
 
-    a8=True runs projections through the W8A8 int8-activation path (2x MXU
-    throughput, small extra quantization error) — prefill only."""
+    a8=True runs projections through the W8A8 int8-activation path (int8
+    tensor cores, small extra quantization error) — prefill only."""
     b, s = tokens.shape
     positions = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32), (b, s))
     # last_only: the [B, S, V] head output is the largest prefill temp
     # (262 MB at 13B b=4) and S x the needed head FLOPs
     logits, caches = forward(
-        params, cfg, tokens, positions, caches, 0, use_flash=use_flash, a8=a8,
-        last_only=True,
+        params, cfg, tokens, positions, caches, 0, a8=a8, last_only=True,
     )
     return logits[:, -1, :], caches
 
 
 @functools.partial(
-    jax.jit, static_argnames=("cfg", "offset", "use_flash"),
-    donate_argnames=("caches",),
+    jax.jit, static_argnames=("cfg", "offset"), donate_argnames=("caches",),
 )
-def _prefill_chunk(params, cfg, tokens, caches, offset: int,
-                   use_flash: bool = True):
+def _prefill_chunk(params, cfg, tokens, caches, offset: int):
     """One prefill chunk: tokens [B, C] at STATIC positions
     offset..offset+C. The chunk attends over cache[:, :, :offset+C]
     (static slice -> one compile per chunk index). Returns (last-token
@@ -66,8 +62,7 @@ def _prefill_chunk(params, cfg, tokens, caches, offset: int,
     # forward_inner directly (not the jitted forward): `offset` must stay a
     # python int so attention() takes the static-slice chunked path
     logits, caches = forward_inner(
-        params, cfg, tokens, positions, caches, offset, use_flash=use_flash,
-        last_only=True,
+        params, cfg, tokens, positions, caches, offset, last_only=True,
     )
     return logits[:, -1, :], caches
 
@@ -78,7 +73,6 @@ def prefill_chunked(
     tokens,  # [B, S]
     caches,
     chunk: int = 512,
-    use_flash: bool = True,
 ):
     """Prefill in fixed-size chunks: bounds peak attention working set and
     per-dispatch latency (a serving engine can interleave decode between
@@ -94,7 +88,7 @@ def prefill_chunked(
     for i in range(s // chunk):
         logits, caches = _prefill_chunk(
             params, cfg, tokens[:, i * chunk : (i + 1) * chunk], caches,
-            offset=i * chunk, use_flash=use_flash,
+            offset=i * chunk,
         )
     return logits, caches
 
@@ -112,7 +106,7 @@ def decode_step(params, cfg, token, pos, caches):
 @functools.partial(
     jax.jit,
     static_argnames=("cfg", "num_steps", "temperature", "top_k",
-                     "eos_token_id", "fused_mlp", "decode_kernel"),
+                     "eos_token_id"),
     donate_argnames=("caches",),
 )
 def decode_loop(
@@ -126,12 +120,9 @@ def decode_loop(
     top_k: int = 0,
     key: jax.Array | None = None,
     eos_token_id: int | None = None,
-    fused_mlp: bool | None = None,
-    decode_kernel: bool | None = None,
 ):
     """The whole decode loop as ONE compiled program (lax.scan over steps,
-    KV caches as donated carry). This is the TPU-native decode driver: a
-    single device-side program with zero per-token host involvement — unlike
+    KV caches as donated carry): a single device-side program with zero per-token host involvement — unlike
     the reference, whose host framework re-dispatches every step
     (`models/base.py:65-72` delegates to HF generate). Returns tokens
     [B, num_steps] (first_token included) and the final caches."""
@@ -146,8 +137,7 @@ def decode_loop(
         pos = (start_pos + i).astype(jnp.int32)
         logits, caches = forward_inner(
             params, cfg, token[:, None],
-            jnp.broadcast_to(pos, (b, 1)), caches, pos, fused_mlp=fused_mlp,
-            decode_kernel=decode_kernel,
+            jnp.broadcast_to(pos, (b, 1)), caches, pos,
         )
         nxt = _sample(logits[:, -1, :], sub, cfg, temperature, top_k)
         if eos_token_id is not None:

@@ -2,8 +2,7 @@
 
 A beyond-reference throughput lever (the reference delegates generation to
 HF `transformers.generate`, `python/eetq/models/base.py:65-72`, and ships
-no speculative path). The TPU economics make it unusually attractive here:
-decode is weight-streaming-bound, so a verify forward over k+1 tokens at
+no speculative path). Decode is weight-streaming-bound, so a verify forward over k+1 tokens at
 m = k+1 <= 8 rides the SAME decode-GEMV regime and costs roughly ONE decode
 step. Every accepted draft token is therefore nearly free target compute.
 
@@ -22,15 +21,16 @@ target model's greedy decode token-for-token, and support per-row dynamic
 positions (rows accept different counts and drift apart, like continuous
 batching).
 
-Exactness caveat: "token-for-token" holds when the sequential decode uses
-the SAME attention numerics as the verify step (every other op in the
-m <= 8 verify forward — GEMV regime, fused MLP, prenorm — already takes
-the identical code path and config as the m = 1 decode step). With
-`decode_kernel=False` both paths use the XLA einsum oracle and the parity
-is bitwise (verified on hardware). Mixing implementations (flash-decode
-kernel for sequential steps, einsum for verify) can flip argmax on
-near-tied logits — real models have ~no ties; random-weight test models
-do.
+Exactness caveat: "token-for-token" holds when the verify forward's
+logits pick the same argmax as the sequential decode step's. The m <= 8
+verify forward takes the same code path as the m = 1 decode step, and a
+decode-regime projection gives each row the same bits whatever the row
+count (the CPU pads to 8 rows; the GPU's GEMV kernel sums each row on its
+own). The attention einsums (S = k+1 against S = 1) and a bf16 lm_head
+reduce in shape-dependent orders, so the logits agree to bf16 rounding,
+not bit for bit, on the CPU and the GPU alike (tests/test_chip.py), and
+argmax can flip on near-tied logits — real models have ~no ties;
+random-weight test models do.
 
 Mechanics per round (positions are absolute, per row; p = position of the
 last accepted-but-unprocessed token `last`):
@@ -58,15 +58,14 @@ from eetq_tpu.models.transformer import forward_inner, init_caches
 from eetq_tpu.serve.generate import prefill
 
 
-def _verify_forward(params, cfg, tokens, start, caches, fused_mlp=None,
-                    lora_idx=None):
+def _verify_forward(params, cfg, tokens, start, caches, lora_idx=None):
     """tokens [B, S] at per-row positions start..start+S-1 (start [B]).
     Returns (logits [B, S, V], caches)."""
     s = tokens.shape[1]
     positions = start[:, None] + jnp.arange(s, dtype=jnp.int32)[None]
     return forward_inner(
         params, cfg, tokens, positions, caches, start, verify=True,
-        fused_mlp=fused_mlp, lora_idx=lora_idx,
+        lora_idx=lora_idx,
     )
 
 
@@ -142,7 +141,6 @@ def positional_generate(
     top_k: int = 0,
     key: jax.Array | None = None,
     kv_dtype=jnp.bfloat16,
-    fused_mlp: bool | None = None,
 ):
     """Plain SEQUENTIAL decode with positional sampling (`_sample_pos`) —
     the parity oracle for sampled speculation: `spec_generate(...)` /
@@ -159,18 +157,18 @@ def positional_generate(
     )[:, 0]
     return _positional_decode_loop(
         params, cfg, tok, jnp.int32(s), caches, max_new_tokens,
-        temperature, top_k, key, fused_mlp,
+        temperature, top_k, key,
     )
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("cfg", "num_steps", "temperature", "top_k", "fused_mlp"),
+    static_argnames=("cfg", "num_steps", "temperature", "top_k"),
     donate_argnames=("caches",),
 )
 def _positional_decode_loop(params, cfg, first_token, start_pos, caches,
                             num_steps: int, temperature: float, top_k: int,
-                            key, fused_mlp):
+                            key):
     b = first_token.shape[0]
 
     def body(carry, i):
@@ -178,7 +176,7 @@ def _positional_decode_loop(params, cfg, first_token, start_pos, caches,
         pos = (start_pos + i).astype(jnp.int32)
         logits, caches = forward_inner(
             params, cfg, token[:, None],
-            jnp.broadcast_to(pos, (b, 1)), caches, pos, fused_mlp=fused_mlp,
+            jnp.broadcast_to(pos, (b, 1)), caches, pos,
         )
         nxt = _sample_pos(
             logits[:, -1][:, None],
@@ -217,7 +215,7 @@ def _accept_and_emit(drafts, g, t_in, last_col_limit, n, out, k):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("cfg_t", "cfg_d", "num_steps", "k", "fused_mlp",
+    static_argnames=("cfg_t", "cfg_d", "num_steps", "k",
                      "temperature", "top_k"),
     donate_argnames=("t_caches", "d_caches"),
 )
@@ -233,7 +231,6 @@ def spec_decode_loop(
     d_caches,
     num_steps: int,
     k: int = 7,
-    fused_mlp: bool | None = None,
     temperature: float = 0.0,
     top_k: int = 0,
     sample_key: jax.Array | None = None,
@@ -259,7 +256,7 @@ def spec_decode_loop(
         # 1. draft catch-up: [prev, last] at p-1..p (rewrites KV at p-1)
         toks2 = jnp.stack([prev, last], axis=1)
         logits2, d_caches = _verify_forward(
-            d_params, cfg_d, toks2, p - 1, d_caches, fused_mlp=fused_mlp
+            d_params, cfg_d, toks2, p - 1, d_caches
         )
         d1 = jnp.argmax(logits2[:, -1, :], -1).astype(jnp.int32)
 
@@ -269,7 +266,6 @@ def spec_decode_loop(
             pos = p + i
             lg, caches = forward_inner(
                 d_params, cfg_d, tok[:, None], pos[:, None], caches, pos,
-                fused_mlp=fused_mlp,
             )
             return (jnp.argmax(lg[:, -1, :], -1).astype(jnp.int32), caches), tok
 
@@ -281,7 +277,7 @@ def spec_decode_loop(
         # 3. verify: one target forward over [last, d_1..d_k] at p..p+k
         t_in = jnp.concatenate([last[:, None], drafts], axis=1)
         logits, t_caches = _verify_forward(
-            t_params, cfg_t, t_in, p, t_caches, fused_mlp=fused_mlp
+            t_params, cfg_t, t_in, p, t_caches
         )
         # target tokens for emission indices n..n+k (positional sampling;
         # temperature == 0 reduces to argmax)
@@ -312,7 +308,6 @@ def spec_generate(
     max_new_tokens: int,
     k: int = 7,
     kv_dtype=jnp.bfloat16,
-    fused_mlp: bool | None = None,
     return_stats: bool = False,
     temperature: float = 0.0,
     top_k: int = 0,
@@ -338,7 +333,7 @@ def spec_generate(
     )[:, 0]
     toks, stats = spec_decode_loop(
         t_params, d_params, cfg_t, cfg_d, first, prompt[:, -1], s,
-        t_caches, d_caches, max_new_tokens, k=k, fused_mlp=fused_mlp,
+        t_caches, d_caches, max_new_tokens, k=k,
         temperature=temperature, top_k=top_k, sample_key=key,
     )
     if return_stats:
@@ -376,7 +371,7 @@ def _ngram_match(hist, valid, last, k: int):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("cfg", "num_steps", "k", "fused_mlp", "temperature",
+    static_argnames=("cfg", "num_steps", "k", "temperature",
                      "top_k"),
     donate_argnames=("caches",),
 )
@@ -389,7 +384,6 @@ def ngram_spec_decode_loop(
     caches,
     num_steps: int,
     k: int = 7,
-    fused_mlp: bool | None = None,
     temperature: float = 0.0,
     top_k: int = 0,
     sample_key: jax.Array | None = None,
@@ -416,7 +410,7 @@ def ngram_spec_decode_loop(
 
         t_in = jnp.concatenate([last[:, None], drafts], axis=1)
         logits, caches = _verify_forward(
-            params, cfg, t_in, p, caches, fused_mlp=fused_mlp
+            params, cfg, t_in, p, caches
         )
         emit_idx = n[:, None] + jnp.arange(k + 1, dtype=jnp.int32)[None]
         g = _sample_pos(logits, emit_idx, sample_key, temperature, top_k)
@@ -512,7 +506,7 @@ def _ngram_window_core(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("cfg", "window", "k", "fused_mlp", "topk_cap"),
+    static_argnames=("cfg", "window", "k", "topk_cap"),
     donate_argnames=("caches",),
 )
 def ngram_spec_window(
@@ -525,7 +519,6 @@ def ngram_spec_window(
     caches,
     window: int,
     k: int = 7,
-    fused_mlp: bool | None = None,
     lora_ids=None,
     sample_args=None,
     topk_cap: int = 0,
@@ -536,7 +529,7 @@ def ngram_spec_window(
 
     def verify(t_in, start, caches):
         return _verify_forward(
-            params, cfg, t_in, start, caches, fused_mlp=fused_mlp,
+            params, cfg, t_in, start, caches,
             lora_idx=lora_ids,
         )
 
@@ -553,7 +546,6 @@ def ngram_spec_generate(
     max_new_tokens: int,
     k: int = 7,
     kv_dtype=jnp.bfloat16,
-    fused_mlp: bool | None = None,
     return_stats: bool = False,
     temperature: float = 0.0,
     top_k: int = 0,
@@ -574,8 +566,7 @@ def ngram_spec_generate(
         top_k,
     )[:, 0]
     toks, stats = ngram_spec_decode_loop(
-        params, cfg, prompt, first, s, caches, max_new_tokens, k=k,
-        fused_mlp=fused_mlp, temperature=temperature, top_k=top_k,
+        params, cfg, prompt, first, s, caches, max_new_tokens, k=k, temperature=temperature, top_k=top_k,
         sample_key=key,
     )
     if return_stats:

@@ -4,7 +4,7 @@ The reference's examples run real tokenize -> generate -> detokenize flows
 through HF AutoTokenizer (`/root/reference/examples/models/
 llama_transformers_example.py:40-76`); its engine only ever sees ids. This
 module closes the text last mile for `serve.api.EngineServer` without any
-dependency (the `tokenizers` Rust wheel is not a given on TPU hosts and
+dependency (the `tokenizers` Rust wheel is not a given on serving hosts and
 this environment is zero-egress): a pure-Python reader for the
 `tokenizer.json` format covering the two families every supported model
 uses —

@@ -13,7 +13,7 @@ merge_and_unload -> eet_accelerator).
   the standard LoRA init).
 - `merge_lora`: fold each adapter's A@B*scaling delta into its base
   weight. Quantized bases are dequantized, merged, and REquantized (the
-  TPU analogue of merge_and_unload on fp16 weights followed by
+  analogue of merge_and_unload on fp16 weights followed by
   quantization) — afterwards the model serves at full quantized-GEMM
   speed with no side path.
 """

@@ -1,6 +1,6 @@
 """One-line quantize-and-swap, including over HuggingFace torch models.
 
-The TPU re-design of `eet_quantize` / `eet_accelerator`
+The re-design of `eet_quantize` / `eet_accelerator`
 (`python/eetq/utils/quantizer.py:40-61`, `utils/accelerator.py:15-19`): the
 reference mutates an nn.Module tree in place (replace each nn.Linear with
 W8A16Linear, free + empty_cache per layer); here the equivalents are

@@ -6,7 +6,7 @@ into tp shards BEFORE quantization so each shard gets its own per-channel
 scales, then merges the shards back into one checkpoint that TGI/LoRAX
 re-slice per rank at load.
 
-The TPU-native formulation collapses that machinery into two facts:
+The formulation here collapses that machinery into two facts:
 
 1. Column-parallel layers (qkv, gate/up): scales are per OUTPUT channel, so
    per-shard quantization is bit-identical to global quantization — no

@@ -3,8 +3,8 @@ to TGI/LoRAX (`/root/reference/README.md:88-101`), built over the engine.
 
 Starts the dependency-free `EngineServer` on a local port, issues a
 non-streamed completion and a streamed (SSE) one from a client thread,
-and prints the per-window token events as they arrive. Runs on CPU
-(Pallas interpret) or a real TPU.
+and prints the per-window token events as they arrive. Runs on the CPU or
+an NVIDIA GPU.
 """
 
 import http.client
@@ -19,6 +19,9 @@ import jax.numpy as jnp
 
 from eetq_tpu.models import ModelConfig, quantize_params, random_dense_params
 from eetq_tpu.serve import Engine, EngineServer
+from eetq_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()  # a restarted server finds its compiled programs
 
 cfg = ModelConfig(
     vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,

@@ -10,7 +10,7 @@ cache.
 Run on CPU with 8 virtual devices:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/models/long_context_example.py
-(on a real TPU slice, drop the env vars — the mesh axis rides ICI).
+(on a multi-GPU host, drop the env vars — the mesh axis rides NVLink).
 """
 
 import os

@@ -16,7 +16,7 @@ merge-and-unload-then-quantize flow of the reference's LoRA example
   4. merge the adapters into the int8 weights (dequantize + fold +
      requantize) for full quantized-GEMM speed with no side path.
 
-Runs on CPU (Pallas interpret) or a real TPU.
+Runs on the CPU or an NVIDIA GPU.
 """
 
 import dataclasses

@@ -1,7 +1,7 @@
 """Continuous-batching serving walkthrough: the engine features the
-reference delegates to TGI/LoRAX (`README.md:88-96`), TPU-native.
+reference delegates to TGI/LoRAX (`README.md:88-96`).
 
-Runs on CPU (Pallas interpret) or a real TPU. Shows:
+Runs on the CPU or an NVIDIA GPU. Shows:
   - slot-based continuous batching with staggered arrivals,
   - the multi-step greedy decode window (amortizes host round-trips),
   - chunked prefill (long prompts don't stall running decode slots),

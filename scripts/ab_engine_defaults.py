@@ -1,10 +1,11 @@
-"""Interleaved same-process A/B of the r5 serving-default promotions
-(VERDICT r4 #8): engine decode with int8 KV caches and W8A8 prefill, each
-against its bf16 baseline, on the SAME staggered continuous-batching
-workload in ONE process (cross-process drift can't contaminate the
-comparison; the engine is host-driven so wall-clock is the honest metric).
+"""Interleaved same-process A/B of the serving defaults that are still
+open on the GPU: engine decode with int8 KV caches and W8A8 prefill, each
+against the bf16 default, on the SAME staggered continuous-batching
+workload in ONE process (the engine is host-driven, so wall-clock is the
+honest metric).
 
-Appends one JSONL row per variant to scripts/r5_results.jsonl.
+Writes one JSON line per variant to stdout and to
+chiprun_out/engine_defaults.jsonl.
 
 Usage: python scripts/ab_engine_defaults.py
 Env: EETQ_BENCH_PRESET (llama2-7b), EETQ_ENGINE_BATCH (4),
@@ -29,8 +30,7 @@ def log(msg):
 
 
 def main():
-    from bench import build_params
-    from eetq_tpu.models import PRESETS
+    from eetq_tpu.models import PRESETS, random_quantized_params
     from eetq_tpu.serve.engine import Engine
 
     preset = os.environ.get("EETQ_BENCH_PRESET", "llama2-7b")
@@ -40,7 +40,7 @@ def main():
     window = int(os.environ.get("EETQ_ENGINE_WINDOW", 8))
     reps = int(os.environ.get("EETQ_AB_REPS", 3))
     cfg = PRESETS[preset]
-    params = build_params(cfg, quantized=True)
+    params = random_quantized_params(cfg, 0)
     max_len = prompt_len + new_tokens + 8
     n_req = 2 * batch
     rng = np.random.default_rng(0)
@@ -93,7 +93,8 @@ def main():
             times[name].append(tps)
             log(f"rep {r} {name}: {tps:.1f} tok/s")
 
-    out_path = os.path.join(os.path.dirname(__file__), "r5_results.jsonl")
+    os.makedirs("chiprun_out", exist_ok=True)
+    out_path = os.path.join("chiprun_out", "engine_defaults.jsonl")
     with open(out_path, "a") as f:
         for name in variants:
             best = max(times[name])
@@ -103,6 +104,7 @@ def main():
                 "all": [round(t, 1) for t in times[name]],
                 "preset": preset, "batch": batch, "prompt": prompt_len,
                 "new": new_tokens, "window": window, "reps": reps,
+                "device": jax.devices()[0].device_kind,
             }
             f.write(json.dumps(row) + "\n")
             print(json.dumps(row))

@@ -1,24 +1,15 @@
-"""MoE decode benchmark: truncated Mixtral-8x7B W8A16 on the real chip.
+"""MoE decode benchmark: truncated Mixtral-8x7B W8A16 on one GPU.
 
-Full Mixtral (47B params) cannot fit one 16 GB v5e even at int8, so this
-benches TRUNCATED-layer models at the REAL per-layer dims (4096 hidden,
-8 experts x 14336 intermediate, top-2, GQA 32q/8kv) — the same
-measured-truncated methodology as bench.py's 13B bf16 estimate. What it
-demonstrates on hardware:
-
-  decode streams only the SELECTED experts' bytes (k/E of the bank). The
-  routed-bytes roofline for L layers at batch 1 is
-      t = (L * (qkv + o + kv_read + k * (gateup_e + down_e)) + lm_head) / BW
-  while the masked-scan path (EETQ_MOE_NO_GATHER=1) streams all E experts.
-  The measured gap between the two IS the scalar-prefetch gather win.
-
-PREFILL is measured separately (best-of-reps): the routed grouped-GEMM
-path (token-sorted per-expert blocks, r5) computes ~k/E of the masked
-scan's dense FLOPs; EETQ_MOE_NO_GROUPED=1 forces the scan for the A/B.
+Benches TRUNCATED-layer models at the REAL per-layer dims (4096 hidden,
+8 experts x 14336 intermediate, top-2, GQA 32q/8kv). Decode gathers only
+the SELECTED experts' int8 slices (k/E of the bank); the routed-bytes
+roofline for L layers at batch 1 is
+    t = (L * (qkv + o + kv_read + k * (gateup_e + down_e)) + lm_head) / BW
+and the all-experts figure is printed beside it. Prefill (best-of-reps)
+takes the routed ragged-dot path over expert-sorted tokens.
 
 Env: EETQ_MOE_LAYERS (default 4), EETQ_MOE_PROMPT (1024),
-EETQ_MOE_NEW_TOKENS (50), EETQ_MOE_REPS (4), EETQ_MOE_NO_GATHER (0),
-EETQ_MOE_NO_GROUPED (0), EETQ_MOE_BITS (8).
+EETQ_MOE_NEW_TOKENS (50), EETQ_MOE_REPS (4), EETQ_MOE_BITS (8).
 """
 
 import dataclasses
@@ -33,13 +24,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from bench import _fetch, bench_decode, log, measure_sync_overhead
+from bench import bench_decode, log
 from eetq_tpu.models.config import MIXTRAL_8X7B
 from eetq_tpu.models.transformer import LayerParams, ModelParams
 from eetq_tpu.modules.linear import DenseLinear, quantize_linear
 from eetq_tpu.modules.moe import MoEMLP, quantize_moe
-
-HBM_GB_S = 819.0  # v5e HBM peak
+from eetq_tpu.utils.profiling import chip_peaks
 
 
 def _gen_moe_layer(cfg, key, bits: int) -> LayerParams:
@@ -121,7 +111,7 @@ def roofline_ms(cfg, prompt_len: int, routed: bool, bits: int) -> float:
     kv = 2 * cfg.num_kv_heads * cfg.head_dim * prompt_len * 2  # bf16
     lm_head = h * cfg.vocab_size * wbytes
     total = cfg.num_layers * (qkv + o + kv + experts) + lm_head
-    return 1e3 * total / (HBM_GB_S * 1e9)
+    return 1e3 * total / (chip_peaks().hbm_gbs * 1e9)
 
 
 def main():
@@ -129,33 +119,28 @@ def main():
     prompt_len = int(os.environ.get("EETQ_MOE_PROMPT", 1024))
     new_tokens = int(os.environ.get("EETQ_MOE_NEW_TOKENS", 50))
     bits = int(os.environ.get("EETQ_MOE_BITS", 8))
-    no_gather = os.environ.get("EETQ_MOE_NO_GATHER", "0") == "1"
     os.environ.setdefault("EETQ_BENCH_REPS", os.environ.get("EETQ_MOE_REPS", "4"))
 
     cfg = dataclasses.replace(MIXTRAL_8X7B, num_layers=layers)
     log(
         f"bench_moe: mixtral-8x7b[{layers} layers] W{bits}A16 b=1 "
-        f"prompt={prompt_len} new={new_tokens} "
-        f"path={'masked-scan' if no_gather else 'gather'} on {jax.devices()}"
+        f"prompt={prompt_len} new={new_tokens} on {jax.devices()}"
     )
-    sync_s = measure_sync_overhead()
-    log(f"host-sync overhead: {sync_s * 1e3:.1f}ms (subtracted)")
 
     t0 = time.time()
     params = build_moe_params(cfg, bits)
     log(f"  built in {time.time() - t0:.1f}s")
 
-    # --- prefill (routed grouped-GEMM vs masked scan via the env knob) ---
+    # --- prefill (routed ragged-dot path) ---
     from eetq_tpu.models.transformer import init_caches
     from eetq_tpu.serve.generate import prefill
 
-    no_grouped = os.environ.get("EETQ_MOE_NO_GROUPED", "0") == "1"
     prompt = jnp.ones((1, prompt_len), jnp.int32)
     reps = int(os.environ["EETQ_BENCH_REPS"])
     logits, _c = prefill(
         params, cfg, prompt, init_caches(cfg, 1, prompt_len + new_tokens)
     )
-    _fetch(logits)  # compile + warmup
+    jax.block_until_ready(logits)  # compile + warmup
     del logits, _c
     gc.collect()
     prefill_s = float("inf")
@@ -164,14 +149,13 @@ def main():
         logits, _c = prefill(
             params, cfg, prompt, init_caches(cfg, 1, prompt_len + new_tokens)
         )
-        _fetch(logits)
-        prefill_s = min(prefill_s, max(time.perf_counter() - t0 - sync_s, 1e-9))
+        jax.block_until_ready(logits)
+        prefill_s = min(prefill_s, time.perf_counter() - t0)
         del logits, _c
         gc.collect()
-    prefill_path = "masked-scan" if (no_grouped or no_gather) else "grouped"
-    log(f"prefill ({prefill_path}): {prefill_s * 1e3:.1f} ms best-of-{reps}")
+    log(f"prefill: {prefill_s * 1e3:.1f} ms best-of-{reps}")
 
-    res = bench_decode(params, cfg, 1, prompt_len, new_tokens, sync_s)
+    res = bench_decode(params, cfg, 1, prompt_len, new_tokens, jnp.bfloat16)
     routed_floor = roofline_ms(cfg, prompt_len, routed=True, bits=bits)
     all_floor = roofline_ms(cfg, prompt_len, routed=False, bits=bits)
     log(
@@ -185,9 +169,7 @@ def main():
         "ms_per_step": res["ms_per_step"],
         "routed_floor_ms": round(routed_floor, 2),
         "all_experts_floor_ms": round(all_floor, 2),
-        "path": "masked-scan" if no_gather else "gather",
-        "prefill_path": prefill_path,
-        "prefill_ms": round(prefill_s * 1e3, 1),
+        "prefill_ms": prefill_s * 1e3,
         "reps": int(os.environ["EETQ_BENCH_REPS"]),
     }))
 

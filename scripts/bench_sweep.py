@@ -1,16 +1,19 @@
 """Batch sweep mirroring the reference's published chart
 (`README.md:109-113`: llama-13b on 3090, prompt=1024, max_new_tokens=50,
-batch 1/2/4) — on one TPU v5e chip, W8A16 and W4A16 vs bf16.
+batch 1/2/4) — on one NVIDIA GPU, W8A16 and W4A16 vs bf16. One bench.py
+process per cell, run one after another (this parent stays off JAX, so
+each child has the card to itself).
 
 Run from the repo root:
   python scripts/bench_sweep.py                 # llama2-7b, batches 1/2/4
   EETQ_SWEEP_PRESET=llama2-13b \
   EETQ_SWEEP_BATCHES=1,2,4,8,16 python scripts/bench_sweep.py
-    # BASELINE config 3: the reference's exact published chart shape —
-    # 13B W8A16 at prompt=1024 swept to the chip's memory limit
+    # the reference's published chart shape — 13B at prompt=1024 swept to
+    # the card's memory limit
 Writes a markdown table to stdout, one bench JSON line per cell to stderr.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -21,10 +24,8 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 def run(preset: str, batch: int, bits: int | None,
         skip_bf16: bool = False) -> dict | None:
-    # the sweep covers batches; the 13B estimate is bench.py's own default
-    # extra and would rebuild three models per invocation here
     env = dict(os.environ, EETQ_BENCH_PRESET=preset,
-               EETQ_BENCH_BATCH=str(batch), EETQ_BENCH_13B="0")
+               EETQ_BENCH_BATCH=str(batch))
     if bits is not None:
         env["EETQ_BENCH_BITS"] = str(bits)
     if skip_bf16:
@@ -49,9 +50,9 @@ def run(preset: str, batch: int, bits: int | None,
     line = lines[-1]
     stats = {}
     for l in out.stderr.splitlines():
-        if l.startswith(("bf16:", "w8a16:")):
+        if l.startswith(("bf16:", "w8a16:", "w4a16:")):
             key = l.split(":")[0]
-            stats[key] = eval(l.split(":", 1)[1].strip())
+            stats[key] = ast.literal_eval(l.split(":", 1)[1].strip())
     print(line, file=sys.stderr)  # per-cell JSON for the record
     return {"json": json.loads(line), **stats}
 
@@ -62,33 +63,32 @@ def main():
         int(b)
         for b in os.environ.get("EETQ_SWEEP_BATCHES", "1,2,4").split(",")
     ]
-    # bf16 7B/13B OOM one 16 GB v5e chip at batch >= 2 (>=13.5 GB weights
-    # + caches + prefill activations) — quantization is what makes those
-    # batches possible at all.
-    bf16_max_batch = 1 if preset == "llama2-7b" else 0
     rows = []
+    kind = None
     for batch in batches:
-        skip_bf16 = batch > bf16_max_batch
-        r8 = run(preset, batch, 8, skip_bf16)
-        r4 = run(preset, batch, 4, skip_bf16)
+        r8 = run(preset, batch, 8)
+        r4 = run(preset, batch, 4, skip_bf16=True)
         if r8 is None and r4 is None:
-            break  # chip memory limit: end of the sweep
-        bf = None if skip_bf16 or r8 is None else r8["bf16"]["decode_tok_s"]
+            break  # the card's memory limit: end of the sweep
+        if r8 is not None:
+            kind = r8["json"]["device"]["kind"]
+        bf = r8["bf16"]["decode_tok_s"] if r8 and "bf16" in r8 else None
         rows.append((
             batch,
             bf,
             r8["w8a16"]["decode_tok_s"] if r8 else None,
-            r4["w8a16"]["decode_tok_s"] if r4 else None,
+            r4["w4a16"]["decode_tok_s"] if r4 else None,
         ))
         print(f"done batch={batch}", file=sys.stderr)
-    print(f"{preset} (prompt=1024, 50 new tokens, 1x v5e):")
+    print(f"{preset} (prompt=1024, 50 new tokens, 1x {kind}):")
     print("| batch | bf16 tok/s | W8A16 tok/s | W4A16 tok/s |")
     print("|---|---|---|---|")
     for b, bf, w8, w4 in rows:
-        bf_s = f"{bf:.1f}" if bf else "OOM (16 GB)"
+        bf_s = f"{bf:.1f}" if bf else "OOM"
+
         def cell(w):
             if w is None:
-                return "OOM (16 GB)"
+                return "OOM"
             return f"{w:.1f}" + (f" ({w/bf:.2f}x)" if bf else "")
         print(f"| {b} | {bf_s} | {cell(w8)} | {cell(w4)} |")
 

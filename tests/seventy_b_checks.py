@@ -90,13 +90,13 @@ def check_parity(dense):
     rng = np.random.default_rng(0)
     mesh = make_mesh(tp=TP, dp=1)
     model = shard_model(dense, CFG, mesh, quantize=False)
-    fwd = make_forward_fn(model, use_flash=False)
+    fwd = make_forward_fn(model)
     b, s = 1, 4
     tokens = jnp.asarray(rng.integers(0, CFG.vocab_size, (b, s)), jnp.int32)
     pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32), (b, s))
     caches = init_caches(CFG, b, 8)
     logits_sh, _ = fwd(model.params, tokens, pos, caches, jnp.int32(0))
-    logits_1d, _ = forward(dense, CFG, tokens, pos, None, 0, use_flash=False)
+    logits_1d, _ = forward(dense, CFG, tokens, pos, None, 0)
     ls, l1 = np.asarray(logits_sh), np.asarray(logits_1d)
     assert np.isfinite(ls).all()
     # bf16 at h=8192: the tp=8 K-partition (f32 partials + psum) sums in a

@@ -1,4 +1,4 @@
-"""70B-shape multichip validation (BASELINE config 5 / VERDICT r2 item 5):
+"""70B-shape multi-device validation (BASELINE config 5):
 shard the REAL Llama-2-70B dimensions (GQA 64q/8kv heads, hidden 8192,
 intermediate 28672, vocab 32000) — truncated to 2 layers so it fits a CPU
 test — over the 8-device virtual mesh, and prove:
@@ -6,14 +6,14 @@ test — over the 8-device virtual mesh, and prove:
 - every sharded axis divides exactly at tp=8 (8 q heads + 1 kv head,
   3584-row row-parallel down shards, 4000-column lm_head shards);
 - the sharded forward matches the single-device forward at these dims
-  (dense bf16 — the quantized kernel's numerics are dim-independent and
-  covered by test_sharding/test_w8a16_matmul; interpret-mode Pallas at
-  70B dims would take tens of minutes on the 1-core CI host);
+  (dense bf16 — the quantized matmul's numerics are dim-independent and
+  covered by test_sharding/test_w8a16_matmul);
 - per-shard quantization at 70B dims produces the right structures:
   stacked [tp, ...] qweights, per-shard scale rows on row-parallel
   layers, a column-split QUANTIZED lm_head;
-- per-device weight memory comes out under a v5e chip's 16 GB at the FULL
-  80 layers (the serving plan the 70B preset exists for).
+- per-device weight memory at the FULL 80 layers fits an 80 GB H100 at
+  tp=4 (the serving plan the 70B preset exists for) with room for caches,
+  and stays under 16 GB per device at tp=8.
 
 The heavy checks (2.2B-param fixture + sharded forwards) run in a CLEAN
 subprocess (tests/seventy_b_checks.py): XLA CPU hard-aborts the process
@@ -42,9 +42,16 @@ def test_70b_dims_divide_at_tp8():
     assert cfg.qkv_out == (64 + 2 * 8) * 128  # fused qkv columns
 
 
-def test_70b_per_device_memory_fits_v5e():
-    """int8 weight bytes per device at tp=8, FULL 80 layers, must leave
-    room for caches on a 16 GB v5e chip."""
+@pytest.mark.parametrize(
+    "tp,weight_budget,total_budget",
+    [
+        (4, 20e9, 60e9),  # four H100s: JAX's 60 GB share of each 80 GB card
+        (8, 11e9, 15e9),  # eight 16 GB devices
+    ],
+)
+def test_70b_per_device_memory_fits_the_card(tp, weight_budget, total_budget):
+    """int8 weight bytes per device at the FULL 80 layers, plus an int8 KV
+    cache for batch 8 x 4096 tokens with kv heads sharded, fit the card."""
     cfg = LLAMA2_70B
     h, inter, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     per_layer = (
@@ -56,12 +63,10 @@ def test_70b_per_device_memory_fits_v5e():
     weight_bytes = cfg.num_layers * per_layer  # int8: 1 byte/weight
     embed_bytes = v * h * 2  # bf16 embed (replicated)
     head_bytes = h * v  # int8 quantized lm_head (column-parallel)
-    per_device = weight_bytes / TP + embed_bytes + head_bytes / TP
-    # ~8.6 GB of weights per chip -> batch*len KV budget remains
-    assert per_device < 11e9, per_device
-    # KV cache per device at batch=8, len=4096, int8 KV, kv heads sharded:
-    kv = 80 * 2 * 8 * 4096 * (cfg.num_kv_heads // TP) * cfg.head_dim
-    assert per_device + kv < 15e9, (per_device, kv)
+    per_device = weight_bytes / tp + embed_bytes + head_bytes / tp
+    assert per_device < weight_budget, per_device
+    kv = 80 * 2 * 8 * 4096 * (cfg.num_kv_heads // tp) * cfg.head_dim
+    assert per_device + kv < total_budget, (per_device, kv)
 
 
 @pytest.mark.slow

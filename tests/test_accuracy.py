@@ -134,7 +134,7 @@ def midsize():
         np.random.default_rng(1).integers(0, 2048, size=(1, 256)), jnp.int32
     )
     pos = jnp.arange(256, dtype=jnp.int32)[None]
-    ld, _ = forward(dense, cfg, toks, pos, None, jnp.int32(0), use_flash=False)
+    ld, _ = forward(dense, cfg, toks, pos, None, jnp.int32(0))
     return cfg, dense, toks, pos, ld
 
 
@@ -144,7 +144,7 @@ def _kl_top1(midsize, **quant_kw):
 
     cfg, dense, toks, pos, ld = midsize
     qp = eet_quantize(dense, **quant_kw)
-    lq, _ = forward(qp, cfg, toks, pos, None, jnp.int32(0), use_flash=False)
+    lq, _ = forward(qp, cfg, toks, pos, None, jnp.int32(0))
     pd = jax.nn.log_softmax(ld, -1)
     pq = jax.nn.log_softmax(lq, -1)
     kl = float(jnp.mean(jnp.sum(jnp.exp(pd) * (pd - pq), -1)))

@@ -1,5 +1,6 @@
-"""ALiBi tests: slope formula vs the recursive reference definition, kernel
-parity vs the XLA oracle (prefill + decode), and baichuan-13b-style e2e
+"""ALiBi tests: slope formula vs the recursive reference definition, the
+prefill and decode attention entries vs a numpy oracle, and
+baichuan-13b-style e2e
 consistency (prefill+decode lock-step == full re-prefill each step).
 
 Parity target: the reference serves baichuan-13b through HF's ALiBi model
@@ -13,12 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from eetq_tpu.kernels.flash_attention import flash_attention
-from eetq_tpu.kernels.flash_decode import flash_decode
 from eetq_tpu.models import ModelConfig, quantize_params, random_dense_params
 from eetq_tpu.models.transformer import forward, init_caches
 from eetq_tpu.modules.attention import (
-    attention_decode_ref,
+    attention_decode,
+    attention_prefill,
     attention_reference,
     causal_mask,
     init_kv_cache,
@@ -92,24 +92,23 @@ def test_reference_attention_alibi_vs_numpy():
 
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
 def test_flash_attention_alibi_matches_oracle(hq, hkv):
+    """The prefill entry (jax.nn.dot_product_attention with an ALiBi
+    bias) against the numpy oracle; bf16 inputs, f32 oracle."""
     rng = np.random.default_rng(1)
     b, s, d = 1, 256, 64
     q = jnp.asarray(rng.standard_normal((b, s, hq, d)), jnp.bfloat16)
     k = jnp.asarray(rng.standard_normal((b, s, hkv, d)), jnp.bfloat16)
     v = jnp.asarray(rng.standard_normal((b, s, hkv, d)), jnp.bfloat16)
-    slopes = jnp.asarray(alibi_slopes(hq))
-    got = flash_attention(q, k, v, causal=True, slopes=slopes, block_q=128,
-                          block_kv=128)
-    want = attention_reference(
-        q, k, v, causal_mask(s), 1.0 / math.sqrt(d), slopes=slopes
-    )
-    np.testing.assert_allclose(
-        np.asarray(got, np.float32), np.asarray(want, np.float32), atol=3e-2
-    )
+    slopes = alibi_slopes(hq)
+    got = attention_prefill(q, k, v, slopes=jnp.asarray(slopes))
+    want = _oracle_full(q, k, v, slopes, np.tril(np.ones((s, s), bool)))
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, atol=3e-2)
 
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_flash_decode_alibi_matches_oracle(quantized):
+    """The decode entry over a bf16 or int8 cache with per-row lengths
+    against the numpy oracle on the dequantized cache."""
     rng = np.random.default_rng(2)
     b, hq, hkv, d, lmax, length = 2, 8, 4, 32, 256, 100
     cache = init_kv_cache(b, lmax, hkv, d,
@@ -118,15 +117,27 @@ def test_flash_decode_alibi_matches_oracle(quantized):
     v = jnp.asarray(rng.standard_normal((b, lmax, hkv, d)), jnp.bfloat16)
     cache = update_cache(cache, k, v, jnp.int32(0))
     q = jnp.asarray(rng.standard_normal((b, 1, hq, d)), jnp.bfloat16)
-    slopes = jnp.asarray(alibi_slopes(hq))
-    lengths = jnp.asarray([length, length - 17], jnp.int32)
-    got = flash_decode(q, cache, lengths, slopes=slopes, block_l=64)
-    want = attention_decode_ref(
-        q, cache, lengths, None, 1.0 / math.sqrt(d), slopes=slopes
+    slopes = alibi_slopes(hq)
+    lengths = [length, length - 17]
+    got = attention_decode(
+        q, cache, jnp.asarray(lengths, jnp.int32), slopes=jnp.asarray(slopes)
     )
-    np.testing.assert_allclose(
-        np.asarray(got, np.float32), np.asarray(want, np.float32), atol=3e-2
-    )
+
+    def dense(x, sc):  # [B, H, L, D] cache leaf -> f32 [B, L, H, D]
+        x = np.asarray(x, np.float32)
+        if sc is not None:
+            x = x * np.asarray(sc, np.float32)[..., None]
+        return x.transpose(0, 2, 1, 3)
+
+    kd, vd = dense(cache.k, cache.k_scale), dense(cache.v, cache.v_scale)
+    for r, n in enumerate(lengths):
+        want = _oracle_full(
+            q[r : r + 1], kd[r : r + 1, :n], vd[r : r + 1, :n], slopes,
+            np.ones((1, n), bool),
+        )
+        np.testing.assert_allclose(
+            np.asarray(got[r : r + 1], np.float32), want, atol=3e-2
+        )
 
 
 CFG13B_TINY = ModelConfig(
@@ -163,8 +174,7 @@ def test_alibi_model_decode_consistent_with_prefill():
     for step in range(n_new):
         t = jnp.asarray(np.asarray(seq, np.int32)[None])
         pos = jnp.arange(len(seq), dtype=jnp.int32)[None]
-        logits, _ = forward(params, CFG13B_TINY, t, pos, None, jnp.int32(0),
-                            use_flash=False)
+        logits, _ = forward(params, CFG13B_TINY, t, pos, None, jnp.int32(0))
         nxt = int(jnp.argmax(logits[0, -1]))
         assert nxt == toks[step], (step, nxt, toks)
         seq.append(nxt)

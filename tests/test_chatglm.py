@@ -82,7 +82,7 @@ def glm_weights():
 @pytest.fixture(scope="module")
 def glm_dir(glm_weights, tmp_path_factory):
     """A fake chatglm3 HF checkpoint directory (safetensors + config)."""
-    from safetensors.numpy import save_file
+    from eetq_tpu.models.safetensors_np import save_file
 
     d = tmp_path_factory.mktemp("hf_chatglm")
     tensors = {
@@ -188,7 +188,7 @@ def test_forward_parity_vs_numpy_oracle(glm_dir):
     ref = _np_glm_forward_weights(glm_dir, toks)
     tokens = jnp.asarray(toks, jnp.int32)[None]
     pos = jnp.arange(12, dtype=jnp.int32)[None]
-    logits, _ = forward(params, cfg, tokens, pos, None, 0, use_flash=False)
+    logits, _ = forward(params, cfg, tokens, pos, None, 0)
     ours = np.asarray(logits)[0]
     np.testing.assert_allclose(ours, ref, rtol=2e-2, atol=2e-2)
     assert (ours.argmax(-1) == ref.argmax(-1)).mean() > 0.9
@@ -197,7 +197,7 @@ def test_forward_parity_vs_numpy_oracle(glm_dir):
 def _np_glm_forward_weights(glm_dir, toks):
     # reload the weights from the checkpoint so the oracle sees exactly
     # what the loader saw
-    from safetensors.numpy import load_file
+    from eetq_tpu.models.safetensors_np import load_file
 
     t = load_file(os.path.join(glm_dir, "model.safetensors"))
     weights = dict(
@@ -228,10 +228,10 @@ def test_quantized_roundtrip_bit_exact(glm_dir, tmp_path):
     save_dir = str(tmp_path / "glm_q")
     model.save_quantized(save_dir)
     # saved tensors keep the chatglm naming (fused, transformer.encoder.*)
-    from safetensors import safe_open
+    from eetq_tpu.models.safetensors_np import safe_open
 
     st = [f for f in os.listdir(save_dir) if f.endswith(".safetensors")][0]
-    with safe_open(os.path.join(save_dir, st), framework="numpy") as h:
+    with safe_open(os.path.join(save_dir, st)) as h:
         names = set(h.keys())
     assert "transformer.encoder.layers.0.self_attention.query_key_value.weight" in names
     assert "transformer.encoder.layers.0.mlp.dense_h_to_4h.weight" in names

@@ -176,7 +176,7 @@ def test_sharded_engine_tp(params):
 
 def test_sharded_engine_dp2(params):
     """dp=2 x tp=2 serving: the slot batch shards over the data axis, and
-    admission prefills up to dp requests per round (VERDICT r1 §10 — the
+    admission prefills up to dp requests per round (the
     round-1 engine required dp=1)."""
     from eetq_tpu.dist import make_mesh
     from eetq_tpu.models import random_dense_params
@@ -649,7 +649,7 @@ def test_spec_engine_sharded_backend(params):
 
 def test_spec_engine_paged_matches_generate(params):
     """spec × paged KV (r5): the speculative window's verify rides the
-    multi-query PAGED flash-decode path (writes through the block table,
+    multi-query PAGED attention path (writes through the block table,
     per-row causal attention over pool blocks) and stays token-for-token
     greedy-exact — including slot recycling through the block allocator."""
     prompts = [[3, 17, 42, 9, 3, 17], [11] * 10, [5, 6, 7], [2, 4, 6, 8]]

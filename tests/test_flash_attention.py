@@ -1,11 +1,16 @@
-"""Flash-attention kernel vs masked-softmax oracle."""
+"""Prefill attention (`attention_prefill`: jax.nn.dot_product_attention,
+cuDNN on the GPU, XLA here) vs the masked-softmax oracle, forward and
+backward."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from eetq_tpu.kernels.flash_attention import flash_attention
-from eetq_tpu.modules.attention import attention_reference, causal_mask
+from eetq_tpu.modules.attention import (
+    attention_prefill,
+    attention_reference,
+    causal_mask,
+)
 
 
 def _qkv(rng, b, s, hq, hkv, d, skv=None):
@@ -28,17 +33,8 @@ def _qkv(rng, b, s, hq, hkv, d, skv=None):
 def test_causal_matches_reference(rng, b, s, hq, hkv, d):
     q, k, v = _qkv(rng, b, s, hq, hkv, d)
     scale = 1.0 / d**0.5
-    out = flash_attention(q, k, v, causal=True)
+    out = attention_prefill(q, k, v)
     ref = attention_reference(q, k, v, causal_mask(s), scale)
-    np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32), rtol=2e-2, atol=2e-3
-    )
-
-
-def test_non_causal(rng):
-    q, k, v = _qkv(rng, 1, 128, 4, 4, 64)
-    out = flash_attention(q, k, v, causal=False)
-    ref = attention_reference(q, k, v, None, 1.0 / 8.0)
     np.testing.assert_allclose(
         np.asarray(out, np.float32), np.asarray(ref, np.float32), rtol=2e-2, atol=2e-3
     )
@@ -47,7 +43,7 @@ def test_non_causal(rng):
 def test_sliding_window(rng):
     s, w = 256, 64
     q, k, v = _qkv(rng, 1, s, 4, 4, 64)
-    out = flash_attention(q, k, v, causal=True, window=w)
+    out = attention_prefill(q, k, v, window=w)
     ref = attention_reference(q, k, v, causal_mask(s, window=w), 1.0 / 8.0)
     np.testing.assert_allclose(
         np.asarray(out, np.float32), np.asarray(ref, np.float32), rtol=2e-2, atol=2e-3
@@ -57,7 +53,7 @@ def test_sliding_window(rng):
 def test_bf16(rng):
     q, k, v = _qkv(rng, 1, 128, 4, 4, 64)
     q, k, v = q.astype(jnp.bfloat16), k.astype(jnp.bfloat16), v.astype(jnp.bfloat16)
-    out = flash_attention(q, k, v, causal=True)
+    out = attention_prefill(q, k, v)
     assert out.dtype == jnp.bfloat16
     ref = attention_reference(q, k, v, causal_mask(128), 1.0 / 8.0)
     np.testing.assert_allclose(
@@ -66,16 +62,19 @@ def test_bf16(rng):
 
 
 def test_cross_attention_lengths(rng):
-    """Sq != Skv (chunked prefill shape)."""
+    """Sq != Skv (chunked prefill shape): the last query aligns with the
+    last key."""
     q, k, v = _qkv(rng, 1, 128, 4, 4, 64, skv=384)
-    out = flash_attention(q, k, v, causal=False)
-    ref = attention_reference(q, k, v, None, 1.0 / 8.0)
+    out = attention_prefill(q, k, v)
+    ref = attention_reference(
+        q, k, v, causal_mask(128, kv_len=384), 1.0 / 8.0
+    )
     np.testing.assert_allclose(
         np.asarray(out, np.float32), np.asarray(ref, np.float32), rtol=2e-2, atol=2e-3
     )
 
 
-# ---- backward (custom VJP: recompute-based flash-2) ----
+# ---- backward (jax.nn.dot_product_attention's own VJP) ----
 
 
 def _grad_pair(loss_flash, loss_ref, args):
@@ -95,7 +94,7 @@ def _grad_pair(loss_flash, loss_ref, args):
     [(4, 4, None), (8, 2, None), (4, 4, 64)],
 )
 def test_backward_matches_reference_vjp(rng, hq, hkv, window):
-    """Flash VJP == attention_reference VJP (the reference relies on
+    """Prefill VJP == attention_reference VJP (the reference relies on
     flash-attn's differentiable CUDA kernel, llama_modules.py:132-141)."""
     s, d = 256, 64
     q, k, v = _qkv(rng, 1, s, hq, hkv, d)
@@ -103,8 +102,7 @@ def test_backward_matches_reference_vjp(rng, hq, hkv, window):
 
     def lf(q, k, v):
         return jnp.sum(
-            flash_attention(q, k, v, causal=True, window=window,
-                            block_q=128, block_kv=128).astype(jnp.float32)
+            attention_prefill(q, k, v, window=window).astype(jnp.float32)
             ** 2
         )
 
@@ -129,8 +127,7 @@ def test_backward_alibi(rng):
 
     def lf(q, k, v):
         return jnp.sum(
-            flash_attention(q, k, v, causal=True, slopes=sl, block_q=128,
-                            block_kv=128).astype(jnp.float32) ** 2
+            attention_prefill(q, k, v, slopes=sl).astype(jnp.float32) ** 2
         )
 
     def lr(q, k, v):
@@ -142,18 +139,18 @@ def test_backward_alibi(rng):
     _grad_pair(lf, lr, (q, k, v))
 
 
-def test_lora_backward_flash_s1024(rng):
-    """LoRA finetuning through the MODEL forward with use_flash=True at
-    S=1024: grads through the flash VJP match the use_flash=False
-    (attention_reference AD) path. This is the reference's
-    LoRA-over-frozen-quantized training capability with flash memory
-    behavior (qlinear.py:64-94 + flash_attn_func)."""
+def test_lora_backward_flash_s1024(rng, monkeypatch):
+    """LoRA finetuning through the MODEL forward at S=1024: grads through
+    the prefill attention's VJP match the grads with attention_reference
+    patched in. This is the reference's LoRA-over-frozen-quantized
+    training capability (qlinear.py:64-94 + flash_attn_func)."""
     import dataclasses
+    import importlib
 
     import jax
 
     from eetq_tpu.models import ModelConfig, quantize_params, random_dense_params
-    from eetq_tpu.models.transformer import forward
+    from eetq_tpu.models.transformer import forward_inner
     from eetq_tpu.modules.linear import LoraAdapter
 
     cfg = ModelConfig(
@@ -179,15 +176,23 @@ def test_lora_backward_flash_s1024(rng):
     )
     pos = jnp.arange(s, dtype=jnp.int32)[None]
 
-    def loss(lora, use_flash):
+    def loss(lora):
         lp = dataclasses.replace(params.layers[0], qkv_lora=lora)
         p = dataclasses.replace(params, layers=[lp])
-        logits, _ = forward(p, cfg, toks, pos, None, jnp.int32(0),
-                            use_flash=use_flash)
+        logits, _ = forward_inner(p, cfg, toks, pos, None, jnp.int32(0))
         return jnp.mean(logits.astype(jnp.float32) ** 2)
 
-    gf = jax.grad(lambda l: loss(l, True))(lora)
-    gr = jax.grad(lambda l: loss(l, False))(lora)
+    gf = jax.grad(loss)(lora)
+
+    def reference_prefill(q, k, v, window=None, slopes=None):
+        return attention_reference(
+            q, k, v, causal_mask(q.shape[1], window, kv_len=k.shape[1]),
+            1.0 / (q.shape[-1] ** 0.5), slopes=slopes,
+        )
+
+    attn_mod = importlib.import_module("eetq_tpu.modules.attention")
+    monkeypatch.setattr(attn_mod, "attention_prefill", reference_prefill)
+    gr = jax.grad(loss)(lora)
     for name in ("lora_a", "lora_b"):
         a, b = getattr(gf, name), getattr(gr, name)
         assert float(jnp.abs(a).sum()) > 0

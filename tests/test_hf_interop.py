@@ -55,7 +55,7 @@ def test_forward_parity_with_transformers(torch_llama, hf_dir, rng):
 
     tokens = jnp.asarray(tokens_np, jnp.int32)
     pos = jnp.broadcast_to(jnp.arange(10, dtype=jnp.int32), (2, 10))
-    logits, _ = forward(params, cfg, tokens, pos, None, 0, use_flash=False)
+    logits, _ = forward(params, cfg, tokens, pos, None, 0)
     ours = np.asarray(logits)
 
     assert (ours.argmax(-1) == ref.argmax(-1)).mean() > 0.95

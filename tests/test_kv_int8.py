@@ -46,8 +46,8 @@ def test_attention_with_int8_cache_close(rng):
     k0 = jnp.asarray(rng.standard_normal((b, 8, hkv, d)).astype(np.float32), jnp.bfloat16)
     v0 = jnp.asarray(rng.standard_normal((b, 8, hkv, d)).astype(np.float32), jnp.bfloat16)
     q0 = jnp.asarray(rng.standard_normal((b, 8, hq, d)).astype(np.float32), jnp.bfloat16)
-    _, cache_bf = attention(q0, k0, v0, cache_bf, 0, use_flash=False)
-    _, cache_i8 = attention(q0, k0, v0, cache_i8, 0, use_flash=False)
+    _, cache_bf = attention(q0, k0, v0, cache_bf, 0)
+    _, cache_i8 = attention(q0, k0, v0, cache_i8, 0)
 
     q1 = jnp.asarray(rng.standard_normal((b, 1, hq, d)).astype(np.float32), jnp.bfloat16)
     k1 = jnp.asarray(rng.standard_normal((b, 1, hkv, d)).astype(np.float32), jnp.bfloat16)

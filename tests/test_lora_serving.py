@@ -1,4 +1,4 @@
-"""LoRA serving (VERDICT r2 item 10): the continuous-batching Engine runs a
+"""LoRA serving: the continuous-batching Engine runs a
 quantized model with LoraAdapter side paths attached (the LoRAX use-case
 the reference's W8A16LoraLinear exists for, `modules/qlinear.py:127-186`),
 and merge_lora mirrors the reference's merge-and-unload-then-quantize flow

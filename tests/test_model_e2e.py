@@ -46,8 +46,8 @@ def _tokens(rng, b, s, vocab=256):
 def test_quantized_forward_close_to_dense(rng, dense_params, quant_params):
     tokens = _tokens(rng, 2, 8)
     pos = jnp.broadcast_to(jnp.arange(8, dtype=jnp.int32), (2, 8))
-    logits_d, _ = forward(dense_params, TINY, tokens, pos, None, 0, use_flash=False)
-    logits_q, _ = forward(quant_params, TINY, tokens, pos, None, 0, use_flash=False)
+    logits_d, _ = forward(dense_params, TINY, tokens, pos, None, 0)
+    logits_q, _ = forward(quant_params, TINY, tokens, pos, None, 0)
     ld, lq = np.asarray(logits_d), np.asarray(logits_q)
     # top-1 agreement on most positions + bounded logit error
     agree = (ld.argmax(-1) == lq.argmax(-1)).mean()
@@ -61,7 +61,7 @@ def test_prefill_decode_consistency(rng, quant_params):
     b, s = 1, 6
     tokens = _tokens(rng, b, s)
     pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32), (b, s))
-    full_logits, _ = forward(quant_params, TINY, tokens, pos, None, 0, use_flash=False)
+    full_logits, _ = forward(quant_params, TINY, tokens, pos, None, 0)
 
     caches = init_caches(TINY, b, 16, dtype=jnp.float32)
     step_logits = []
@@ -105,7 +105,7 @@ def test_generate_matches_forward_argmax(rng, quant_params):
     position."""
     prompt = _tokens(rng, 1, 5)
     pos = jnp.broadcast_to(jnp.arange(5, dtype=jnp.int32), (1, 5))
-    logits, _ = forward(quant_params, TINY, prompt, pos, None, 0, use_flash=False)
+    logits, _ = forward(quant_params, TINY, prompt, pos, None, 0)
     expected = int(np.asarray(logits)[0, -1].argmax())
     out = generate(quant_params, TINY, prompt, max_new_tokens=1)
     assert int(np.asarray(out)[0, 0]) == expected

@@ -73,7 +73,7 @@ def test_lora_side_path(rng):
     out = linear_apply(ql, x, lora=lora)
     base = linear_apply(ql, x)
     expected_side = (np.asarray(x) @ a @ bmat) * 2.0
-    # atol covers compiled-TPU f32 dot rounding (EETQ_TEST_TPU=1)
+    # atol covers a compiled f32 dot's rounding
     np.testing.assert_allclose(
         np.asarray(out) - np.asarray(base), expected_side, rtol=1e-3, atol=3e-4
     )

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts: the expert-indexed Pallas matmul vs the jnp oracle,
-routed-MLP correctness (gather and scan paths), the full mixtral-family
+"""Mixture-of-Experts: the expert-gather matmul vs the jnp oracle,
+routed-MLP correctness (gather, ragged-dot and masked-scan paths), the full mixtral-family
 model (prefill/decode parity, engine, checkpoints), and expert parallelism
 on the virtual mesh.
 
@@ -20,6 +20,7 @@ from eetq_tpu.layout import pack_weights, unpack_weights
 from eetq_tpu.models import forward, init_caches, quantize_params, random_dense_params
 from eetq_tpu.models.config import TOY_MOE, ModelConfig
 from eetq_tpu.modules.moe import MoEMLP, moe_apply, quantize_moe, route
+from eetq_tpu.ops.linear import w8a16_matmul_ref
 from eetq_tpu.ops.moe import expert_matmul_ref, w8a16_expert_matmul
 from eetq_tpu.quant import symmetric_quantize
 
@@ -34,18 +35,18 @@ def test_expert_matmul_matches_ref():
     q, pw, s = _bank(jax.random.PRNGKey(0), 4, 192, 200)
     x = jax.random.normal(jax.random.PRNGKey(1), (3, 192), jnp.bfloat16)
     eids = jnp.array([0, 2, 2, 1, 3], jnp.int32)  # with a repeat
-    out = w8a16_expert_matmul(x, pw, s, eids, interpret=True)
+    out = w8a16_expert_matmul(x, pw, s, eids)
     ref = expert_matmul_ref(x, q, s, eids).astype(out.dtype)
     assert out.shape == (5, 3, 200)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
 def test_expert_matmul_prefill_grid():
-    # m > one row block: exercises the (n_sel, nm>1, nn, nk) grid
+    # prefill-sized m: every selection sees all 130 rows
     q, pw, s = _bank(jax.random.PRNGKey(2), 3, 256, 256)
     x = jax.random.normal(jax.random.PRNGKey(3), (130, 256), jnp.bfloat16)
     eids = jnp.array([1, 0], jnp.int32)
-    out = w8a16_expert_matmul(x, pw, s, eids, interpret=True)
+    out = w8a16_expert_matmul(x, pw, s, eids)
     ref = expert_matmul_ref(x, q, s, eids).astype(out.dtype)
     assert out.shape == (2, 130, 256)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
@@ -55,57 +56,77 @@ def test_expert_matmul_int4_groupwise():
     q, pw, s = _bank(jax.random.PRNGKey(4), 4, 192, 128, bits=4, group_size=64)
     x = jax.random.normal(jax.random.PRNGKey(5), (2, 192), jnp.bfloat16)
     eids = jnp.array([3, 1, 1], jnp.int32)
-    out = w8a16_expert_matmul(x, pw, s, eids, interpret=True)
+    out = w8a16_expert_matmul(x, pw, s, eids)
     ref = expert_matmul_ref(x, q, s, eids).astype(out.dtype)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
-def test_grouped_matmul_matches_ref():
-    from eetq_tpu.ops.moe import grouped_matmul_ref, w8a16_grouped_matmul
+def _manual_combine(moe, x, top_k):
+    """Hand-built top-k softmax combine of per-expert dequant-MLP oracles,
+    token by token. x [1, T, H] -> [T, H] f32."""
+    x2 = x.reshape(-1, x.shape[-1])
+    topw, topi = route(moe.router, x2, top_k)
+    gu = unpack_weights(moe.gateup.qweight)
+    dn = unpack_weights(moe.down.qweight)
+    want = np.zeros(x2.shape, np.float32)
+    for t in range(x2.shape[0]):
+        for j in range(top_k):
+            e = int(topi[t, j])
+            g_out = w8a16_matmul_ref(
+                x2[t : t + 1], gu[e], moe.gateup.scales[e]
+            ).astype(x.dtype)
+            gate, up = jnp.split(g_out, 2, axis=-1)
+            hidden = (
+                jax.nn.silu(gate.astype(jnp.float32)) * up.astype(jnp.float32)
+            ).astype(x.dtype)
+            d_out = w8a16_matmul_ref(hidden, dn[e], moe.down.scales[e])
+            want[t] += float(topw[t, j]) * np.asarray(d_out, np.float32)[0]
+    return want
 
-    q, pw, s = _bank(jax.random.PRNGKey(0), 4, 192, 256)
-    bm, nb = 8, 6
-    x = jax.random.normal(jax.random.PRNGKey(1), (nb * bm, 192), jnp.bfloat16)
-    be = jnp.array([0, 2, 2, 1, 3, 0], jnp.int32)
-    out = w8a16_grouped_matmul(x, pw, s, be, interpret=True)
-    ref = grouped_matmul_ref(x, q, s, be, bm).astype(out.dtype)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+
+def test_grouped_matmul_matches_ref():
+    """Routed prefill over a per-channel int8 bank (jax.lax.ragged_dot over
+    expert-sorted tokens) == the per-token combine oracle."""
+    from eetq_tpu.modules.moe import moe_grouped_combine
+
+    moe = quantize_moe(_toy_moe(jax.random.PRNGKey(0)))
+    x = jax.random.normal(jax.random.PRNGKey(1), (1, 24, 64), jnp.bfloat16)
+    x2 = x.reshape(24, 64)
+    topw, topi = route(moe.router, x2, 2)
+    got = moe_grouped_combine(moe, x2, topw, topi, "silu")
+    np.testing.assert_allclose(
+        np.asarray(got), _manual_combine(moe, x, 2), rtol=2e-2, atol=2e-2
+    )
 
 
 def test_grouped_matmul_int4_groupwise():
-    from eetq_tpu.ops.moe import grouped_matmul_ref, w8a16_grouped_matmul
-
-    q, pw, s = _bank(jax.random.PRNGKey(2), 4, 192, 256, bits=4, group_size=64)
-    bm, nb = 8, 5
-    x = jax.random.normal(jax.random.PRNGKey(3), (nb * bm, 192), jnp.bfloat16)
-    be = jnp.array([3, 1, 1, 0, 2], jnp.int32)
-    out = w8a16_grouped_matmul(x, pw, s, be, interpret=True)
-    ref = grouped_matmul_ref(x, q, s, be, bm).astype(out.dtype)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    """int4 banks at prefill size: per-channel int4 takes the ragged-dot
+    path, group-wise int4 the masked scan; both == the combine oracle."""
+    for g in (None, 32):
+        moe = quantize_moe(_toy_moe(jax.random.PRNGKey(2)), bits=4,
+                           group_size=g)
+        x = jax.random.normal(jax.random.PRNGKey(3), (1, 20, 64), jnp.bfloat16)
+        got = moe_apply(moe, x, 2)
+        np.testing.assert_allclose(
+            np.asarray(got, np.float32).reshape(20, 64),
+            _manual_combine(moe, x, 2), rtol=3e-2, atol=3e-2,
+        )
 
 
 def test_moe_grouped_prefill_matches_scan():
-    """The routed grouped-GEMM prefill (token-sorted per-expert blocks)
-    matches the masked-scan oracle — including zero-token experts and
-    heavily imbalanced routing."""
-    import os
-
+    """The routed ragged-dot prefill matches the combine oracle — including
+    zero-token experts and heavily imbalanced routing."""
     moe = quantize_moe(_toy_moe(jax.random.PRNGKey(0)))
     for seed, t in ((5, 33), (6, 64), (7, 9)):
         x = jax.random.normal(jax.random.PRNGKey(seed), (1, t, 64), jnp.bfloat16)
-        got = moe_apply(moe, x, 2, interpret=True)  # grouped path
-        os.environ["EETQ_MOE_NO_GROUPED"] = "1"
-        try:
-            want = moe_apply(moe, x, 2, interpret=True)  # masked scan
-        finally:
-            del os.environ["EETQ_MOE_NO_GROUPED"]
+        got = moe_apply(moe, x, 2)
         np.testing.assert_allclose(
-            np.asarray(got, np.float32), np.asarray(want, np.float32),
-            rtol=2e-2, atol=2e-2,
+            np.asarray(got, np.float32).reshape(t, 64),
+            _manual_combine(moe, x, 2), rtol=2e-2, atol=2e-2,
         )
 
-    # degenerate routing: a router bias that sends every token to expert 0
-    # and 1 (experts 2/3 get zero tokens, zero blocks)
+    # degenerate routing: a router that sends every token to expert 0
+    # and 1 (experts 2/3 get zero tokens)
     import dataclasses as dc
 
     from eetq_tpu.modules.linear import DenseLinear
@@ -114,21 +135,16 @@ def test_moe_grouped_prefill_matches_scan():
     rw[:, 0], rw[:, 1] = 5.0, 4.0
     skewed = dc.replace(moe, router=DenseLinear(weight=jnp.asarray(rw, jnp.bfloat16)))
     x = jax.random.normal(jax.random.PRNGKey(8), (1, 17, 64), jnp.bfloat16)
-    got = moe_apply(skewed, x, 2, interpret=True)
-    os.environ["EETQ_MOE_NO_GROUPED"] = "1"
-    try:
-        want = moe_apply(skewed, x, 2, interpret=True)
-    finally:
-        del os.environ["EETQ_MOE_NO_GROUPED"]
+    got = moe_apply(skewed, x, 2)
     np.testing.assert_allclose(
-        np.asarray(got, np.float32), np.asarray(want, np.float32),
-        rtol=2e-2, atol=2e-2,
+        np.asarray(got, np.float32).reshape(17, 64),
+        _manual_combine(skewed, x, 2), rtol=2e-2, atol=2e-2,
     )
 
 
 def test_moe_grouped_prefill_ep_parity():
-    """EP grouped prefill: with k < E_local each shard takes the routed
-    grouped path (non-local selections parked on local expert 0 with a
+    """EP routed prefill: with k < E_local each shard takes the routed
+    ragged-dot path (non-local selections parked on local expert 0 with a
     ZERO combine weight) and the caller's psum completes the cross-shard
     combine — matching the single-device grouped output."""
     from jax import shard_map
@@ -138,8 +154,8 @@ def test_moe_grouped_prefill_ep_parity():
     e, h, i, k, t = 8, 64, 96, 2, 33
     moe = quantize_moe(_toy_moe(jax.random.PRNGKey(0), e=e, h=h, i=i))
     x = jax.random.normal(jax.random.PRNGKey(9), (1, t, h), jnp.bfloat16)
-    # single-device routed grouped path (n_sel = 66 > MAX_DECODE_M)
-    want = moe_apply(moe, x, k, interpret=True)
+    # single-device routed path (n_sel = 66 > MAX_GATHER_SELECTIONS)
+    want = moe_apply(moe, x, k)
 
     def bank_specs(lin):
         return jax.tree.map(
@@ -151,11 +167,11 @@ def test_moe_grouped_prefill_ep_parity():
         gateup=bank_specs(moe.gateup),
         down=bank_specs(moe.down),
     )
-    # tp=2: E_local=4 > k=2 -> grouped gate holds per shard
+    # tp=2: E_local=4 > k=2 -> the routed path holds per shard
     mesh = Mesh(np.array(jax.devices()[:2]), ("model",))
     fn = shard_map(
         lambda m, xx: jax.lax.psum(
-            moe_apply(m, xx, k, tp_axis="model", interpret=True), "model"
+            moe_apply(m, xx, k, tp_axis="model"), "model"
         ),
         mesh=mesh, in_specs=(specs, P()), out_specs=P(), check_vma=False,
     )
@@ -170,7 +186,7 @@ def test_moe_grouped_prefill_ep_parity():
     mesh4 = Mesh(np.array(jax.devices()[:4]), ("model",))
     fn4 = shard_map(
         lambda m, xx: jax.lax.psum(
-            moe_apply(m, xx, k, tp_axis="model", interpret=True), "model"
+            moe_apply(m, xx, k, tp_axis="model"), "model"
         ),
         mesh=mesh4, in_specs=(specs, P()), out_specs=P(), check_vma=False,
     )
@@ -202,45 +218,35 @@ def _toy_moe(key, e=4, h=64, i=96, dtype=jnp.bfloat16) -> MoEMLP:
 
 def test_moe_apply_gather_matches_scan_ref():
     moe = quantize_moe(_toy_moe(jax.random.PRNGKey(0)))
-    # decode shape -> gather (scalar-prefetch) path
+    # decode shape -> gather path
     x1 = jax.random.normal(jax.random.PRNGKey(1), (1, 1, 64), jnp.bfloat16)
-    got = moe_apply(moe, x1, 2, use_kernel=True)
-    ref = moe_apply(moe, x1, 2, use_kernel=False)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-    # prefill shape -> scan-kernel path
-    x2 = jax.random.normal(jax.random.PRNGKey(2), (2, 9, 64), jnp.bfloat16)
-    got2 = moe_apply(moe, x2, 2, use_kernel=True)
-    ref2 = moe_apply(moe, x2, 2, use_kernel=False)
-    np.testing.assert_array_equal(np.asarray(got2), np.asarray(ref2))
+    got = moe_apply(moe, x1, 2)
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32).reshape(1, 64),
+        _manual_combine(moe, x1, 2), rtol=2e-2, atol=2e-2,
+    )
+    # prefill shape (18 selections) -> routed ragged-dot path
+    x2 = jax.random.normal(jax.random.PRNGKey(2), (1, 9, 64), jnp.bfloat16)
+    got2 = moe_apply(moe, x2, 2)
+    np.testing.assert_allclose(
+        np.asarray(got2, np.float32).reshape(9, 64),
+        _manual_combine(moe, x2, 2), rtol=2e-2, atol=2e-2,
+    )
 
 
 def test_moe_routing_combine_manual():
-    """The routed output equals the hand-built top-k softmax combine of
-    per-expert MLP oracles."""
+    """The routed output of a dense (unquantized) MoE layer — the masked
+    scan — equals the combine of its quantized twin's oracle within
+    quantization error, and the quantized layer matches exactly that
+    oracle."""
     moe_d = _toy_moe(jax.random.PRNGKey(7))
     moe = quantize_moe(moe_d)
     x = jax.random.normal(jax.random.PRNGKey(8), (1, 5, 64), jnp.bfloat16)
-    x2 = x.reshape(5, 64)
-    topw, topi = route(moe.router, x2, 2)
-    gu = unpack_weights(moe.gateup.qweight)
-    dn = unpack_weights(moe.down.qweight)
-    from eetq_tpu.kernels.w8a16 import w8a16_matmul_ref
-
-    want = np.zeros((5, 64), np.float32)
-    for t in range(5):
-        for j in range(2):
-            e = int(topi[t, j])
-            g_out = w8a16_matmul_ref(
-                x2[t : t + 1], gu[e], moe.gateup.scales[e]
-            ).astype(jnp.bfloat16)
-            gate, up = jnp.split(g_out, 2, axis=-1)
-            hidden = (
-                jax.nn.silu(gate.astype(jnp.float32)) * up.astype(jnp.float32)
-            ).astype(jnp.bfloat16)
-            d_out = w8a16_matmul_ref(hidden, dn[e], moe.down.scales[e])
-            want[t] += float(topw[t, j]) * np.asarray(d_out, np.float32)[0]
-    got = np.asarray(moe_apply(moe, x, 2, use_kernel=False), np.float32)
+    want = _manual_combine(moe, x, 2)
+    got = np.asarray(moe_apply(moe, x, 2), np.float32)
     np.testing.assert_allclose(got.reshape(5, 64), want, rtol=2e-2, atol=2e-2)
+    dense = np.asarray(moe_apply(moe_d, x, 2), np.float32)
+    np.testing.assert_allclose(dense.reshape(5, 64), want, rtol=0.1, atol=0.1)
 
 
 def test_moe_model_prefill_decode_parity():
@@ -307,7 +313,7 @@ def _write_mixtral_dir(dense, cfg, dd):
     import json
     import os
 
-    from safetensors.numpy import save_file
+    from eetq_tpu.models.safetensors_np import save_file
 
     tensors = {}
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -391,7 +397,7 @@ def test_moe_hf_fp16_checkpoint_load():
 
 
 def test_mixtral_public_api_end_to_end():
-    """VERDICT r4 #2: the full public workflow on the MoE family —
+    """The full public workflow on the MoE family —
     AutoEETQForCausalLM.from_pretrained(mixtral_dir) -> quantize(save_dir)
     -> from_quantized -> Engine.add_request -> tokens, all through public
     symbols (reference: one registry dispatches every supported family,

@@ -94,12 +94,12 @@ def test_mha_tp8(rng):
     params = random_dense_params(cfg, jax.random.PRNGKey(3), dtype=jnp.float32)
     mesh = make_mesh(tp=8, dp=1)
     model = shard_model(params, cfg, mesh, quantize=False)
-    fwd = make_forward_fn(model, use_flash=False)
+    fwd = make_forward_fn(model)
     tokens = _tokens(rng, 1, 4)
     pos = jnp.broadcast_to(jnp.arange(4, dtype=jnp.int32), (1, 4))
     caches = init_caches(cfg, 1, 8, dtype=jnp.float32)
     logits_sh, _ = fwd(model.params, tokens, pos, caches, jnp.int32(0))
-    logits_1d, _ = forward(params, cfg, tokens, pos, None, 0, use_flash=False)
+    logits_1d, _ = forward(params, cfg, tokens, pos, None, 0)
     ls, l1 = np.asarray(logits_sh), np.asarray(logits_1d)
     np.testing.assert_allclose(ls, l1, rtol=5e-2, atol=8e-2)
 
@@ -110,7 +110,7 @@ def test_sharded_dense_forward_matches_single(rng, dense_params, tp, dp):
     forward (up to f32 reduction order)."""
     mesh = make_mesh(tp=tp, dp=dp)
     model = shard_model(dense_params, CFG, mesh, quantize=False)
-    fwd = make_forward_fn(model, use_flash=False)
+    fwd = make_forward_fn(model)
 
     b, s = 4, 8  # batch divisible by every dp under test
     tokens = _tokens(rng, b, s)
@@ -118,7 +118,7 @@ def test_sharded_dense_forward_matches_single(rng, dense_params, tp, dp):
     caches = init_caches(CFG, b, 16, dtype=jnp.float32)
 
     logits_sh, caches_sh = fwd(model.params, tokens, pos, caches, jnp.int32(0))
-    logits_1d, _ = forward(dense_params, CFG, tokens, pos, None, 0, use_flash=False)
+    logits_1d, _ = forward(dense_params, CFG, tokens, pos, None, 0)
     # Activations are bf16; the TP path all-reduces bf16 partials (standard
     # Megatron practice) while single-device accumulates full-K in f32, so
     # agreement is at bf16 granularity.
@@ -132,7 +132,7 @@ def test_sharded_quantized_forward_close(rng, dense_params):
     row-parallel shards are quantized per-shard (tighter scales)."""
     mesh = make_mesh(tp=4, dp=1)
     model = shard_model(dense_params, CFG, mesh, quantize=True)
-    fwd = make_forward_fn(model, use_flash=False)
+    fwd = make_forward_fn(model)
 
     b, s = 1, 8
     tokens = _tokens(rng, b, s)
@@ -141,7 +141,7 @@ def test_sharded_quantized_forward_close(rng, dense_params):
     logits_sh, _ = fwd(model.params, tokens, pos, caches, jnp.int32(0))
 
     qp = quantize_params(dense_params)
-    logits_q, _ = forward(qp, CFG, tokens, pos, None, 0, use_flash=False)
+    logits_q, _ = forward(qp, CFG, tokens, pos, None, 0)
     ls, lq = np.asarray(logits_sh), np.asarray(logits_q)
     assert (ls.argmax(-1) == lq.argmax(-1)).mean() > 0.9
     assert np.abs(ls - lq).mean() < 0.1
@@ -152,7 +152,7 @@ def test_sharded_decode_step(rng, dense_params):
     the single-device path."""
     mesh = make_mesh(tp=4, dp=1)
     model = shard_model(dense_params, CFG, mesh, quantize=False)
-    fwd = make_forward_fn(model, use_flash=False)
+    fwd = make_forward_fn(model)
 
     b, s = 1, 6
     tokens = _tokens(rng, b, s + 1)
@@ -169,7 +169,7 @@ def test_sharded_decode_step(rng, dense_params):
 
     full_pos = jnp.broadcast_to(jnp.arange(s + 1, dtype=jnp.int32), (b, s + 1))
     logits_full, _ = forward(
-        dense_params, CFG, tokens, full_pos, None, 0, use_flash=False
+        dense_params, CFG, tokens, full_pos, None, 0
     )
     np.testing.assert_allclose(
         np.asarray(logits_step[:, 0]),

@@ -8,7 +8,7 @@ quality (a bad draft only costs speed, never correctness).
 The draft-model spec_generate checks (which compile TWO full models into
 one while_loop) run in a clean subprocess — tests/spec_checks.py — because
 that compile segfaulted XLA CPU at ~83% of two consecutive full-suite runs
-while passing in isolation (r4 VERDICT weak #1); the subprocess makes the
+while passing in isolation; the subprocess makes the
 full suite deterministic and keeps the coverage."""
 
 import dataclasses
@@ -183,3 +183,33 @@ def test_ngram_repetitive_accepts(rng, quant_params):
     ref = greedy_generate(quant_params, TINY, prompt, 20)
     np.testing.assert_array_equal(np.asarray(toks), np.asarray(ref))
     assert stats["rounds"] <= 19
+
+
+@pytest.mark.parametrize("quantize_lm_head", [False, True])
+def test_verify_forward_agrees_with_decode_steps(rng, dense_params,
+                                                  quantize_lm_head):
+    """The verify forward over k+1 = 8 tokens against the single-token
+    decode step at each position: the same greedy token and logits within
+    bf16 rounding (the attention einsums and the lm_head reduce in
+    shape-dependent orders, so not bit for bit in general)."""
+    from eetq_tpu.models import init_caches
+    from eetq_tpu.serve.generate import decode_step, prefill
+    from eetq_tpu.serve.spec import _verify_forward
+
+    qp = quantize_params(dense_params, quantize_lm_head=quantize_lm_head)
+    p, s = 12, 8
+    toks = _tokens(rng, 1, p + s)
+    _, caches = prefill(qp, TINY, toks[:, :p], init_caches(TINY, 1, 64))
+    verify, _ = jax.jit(_verify_forward, static_argnums=1)(
+        qp, TINY, toks[:, p:], jnp.full((1,), p, jnp.int32), caches)
+    verify = np.asarray(verify, np.float32)
+    for i in range(s):
+        single, caches = decode_step(qp, TINY, toks[:, p + i : p + i + 1],
+                                     p + i, caches)
+        single = np.asarray(single, np.float32)
+        np.testing.assert_array_equal(verify[:, i].argmax(-1),
+                                      single.argmax(-1))
+        # bf16 activations between layers: one rounding step (2^-8
+        # relative) at the largest logit, with room for one more
+        atol = 2.0**-7 * np.abs(single).max()
+        np.testing.assert_allclose(verify[:, i], single, rtol=0, atol=atol)

@@ -4,10 +4,34 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from eetq_tpu.kernels.w8a8 import quantize_activations, w8a8_matmul_ref
 from eetq_tpu.layout import pack_weights
-from eetq_tpu.ops.linear8 import w8a8_matmul
+from eetq_tpu.ops.linear8 import quantize_activations, w8a8_matmul
 from eetq_tpu.quant import symmetric_quantize
+
+
+def _np_w8a8(x, q, s, bias=None, activation=None):
+    """numpy oracle: per-token int8 activations (round half to even, like
+    jnp.round), exact integer products, per-channel or per-group scales."""
+    xf = np.asarray(x, np.float32)
+    sx = np.abs(xf).max(-1) / 127.0
+    safe = np.where(sx == 0, 1.0, sx)
+    xq = np.clip(np.round(xf / safe[:, None]), -127, 127).astype(np.int64)
+    qi = np.asarray(q, np.int64)
+    s = np.asarray(s, np.float64)
+    if s.ndim == 1:
+        r = (xq @ qi) * s
+    else:
+        g = qi.shape[0] // s.shape[0]
+        r = sum(
+            (xq[:, i * g : (i + 1) * g] @ qi[i * g : (i + 1) * g]) * s[i]
+            for i in range(s.shape[0])
+        )
+    r = r * sx[:, None]
+    if bias is not None:
+        r = r + np.asarray(bias, np.float64)
+    if activation == "silu":
+        r = r / (1.0 + np.exp(-r))
+    return r.astype(np.float32)
 
 
 def test_quantize_activations(rng):
@@ -31,9 +55,9 @@ def test_kernel_matches_reference(rng, m, k, n):
     w = rng.standard_normal((k, n)).astype(np.float32) / np.sqrt(k)
     q, s = symmetric_quantize(jnp.asarray(w))
     out = w8a8_matmul(x, pack_weights(q), s)
-    ref = w8a8_matmul_ref(x, q, s)
+    ref = _np_w8a8(x, q, s)
     np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32),
+        np.asarray(out, np.float32), ref,
         rtol=2e-2, atol=2e-2,
     )
 
@@ -56,16 +80,16 @@ def test_bias_activation_epilogue(rng):
     bias = jnp.asarray(rng.standard_normal((n,)).astype(np.float32))
     q, s = symmetric_quantize(jnp.asarray(w))
     out = w8a8_matmul(x, q, s, bias=bias, activation="silu")
-    ref = w8a8_matmul_ref(x, q, s, bias=bias, activation="silu")
+    ref = _np_w8a8(x, q, s, bias=bias, activation="silu")
     np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32),
+        np.asarray(out, np.float32), ref,
         rtol=2e-2, atol=2e-2,
     )
 
 
 def test_rejects_int8_groupwise_accepts_int4(rng):
     w = rng.standard_normal((256, 128)).astype(np.float32)
-    # int4 now routes to the W4A8 kernel (tests/test_w4a8.py)
+    # int4 routes to W4A8 (tests/test_w4a8.py)
     q4, s4 = symmetric_quantize(jnp.asarray(w), bits=4)
     out = w8a8_matmul(jnp.ones((2, 256)), pack_weights(q4, bits=4), s4)
     assert out.shape == (2, 128)
